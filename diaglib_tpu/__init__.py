@@ -1,6 +1,6 @@
-"""diaglib-tpu: a TPU-native, matrix-free iterative eigensolver library.
+"""diaglib-tpu: a matrix-free iterative eigensolver library in JAX.
 
-Built from scratch in JAX (XLA/Pallas/pjit) with the capabilities of
+Built from scratch in JAX (XLA/pjit) with the capabilities of
 Molecolab-Pisa/diaglib (see SURVEY.md): block Davidson-Liu, LOBPCG
 (standard + generalized), generalized Davidson, two Casida linear-response
 solvers, and a two-sided nonsymmetric Davidson, on top of a family of
@@ -8,7 +8,6 @@ numerically hardened orthogonalization kernels.
 """
 
 from . import config, ortho, utils
-from .utils.compile import safe_jit, tpu_compiler_options
 from .types import (
     LROps,
     LRSolverResult,

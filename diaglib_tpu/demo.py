@@ -71,8 +71,7 @@ def cmd_symm(args):
     a = symm_matrix(n)
     diag = jnp.diagonal(a)
     # dense oracle on the host (scipy), like the other commands: the
-    # reference's lapack.txt is a host dsyev (main.f90:321-342), and an
-    # on-device emulated-f64 eigh takes minutes on TPU
+    # reference's lapack.txt is a host dsyev (main.f90:321-342)
     import scipy.linalg
 
     ww, vv = scipy.linalg.eigh(np.asarray(a, np.float64))

@@ -1,26 +1,15 @@
-"""Operator kernels: the hot matvec paths (Pallas on TPU)."""
+"""Operator kernels: the hot matvec paths."""
 
 from .bsr import (
     BSRMatrix,
+    bsr_astype,
     bsr_diagonal,
     bsr_from_dense,
     bsr_matvec,
     bsr_to_dense,
     random_bsr_spd,
 )
-from .bsr_sliced import SlicedBSR, slice_bsr, sliced_bsr_matvec
-from .bsr_sliced_sym import (
-    SymSlicedBSR,
-    slice_bsr_sym,
-    sliced_matvec_any,
-    sym_sliced_matvec,
-)
 from .dist_bsr import DistBSRMatrix, dist_bsr_matvec, distribute_bsr
-from .dist_sliced import (
-    DistSlicedBSR,
-    dist_sliced_matvec,
-    distribute_sliced_bsr,
-)
 from .ell import (
     ELLMatrix,
     ell_diagonal,
@@ -29,35 +18,22 @@ from .ell import (
     ell_matvec,
     ell_to_dense,
 )
-from .slicing import sliced_mm, sliced_mmT, sliced_mTm
 
 __all__ = [
     "BSRMatrix",
     "DistBSRMatrix",
     "ELLMatrix",
+    "bsr_astype",
     "bsr_diagonal",
     "bsr_from_dense",
     "bsr_matvec",
     "bsr_to_dense",
-    "DistSlicedBSR",
     "dist_bsr_matvec",
-    "dist_sliced_matvec",
     "distribute_bsr",
-    "distribute_sliced_bsr",
     "ell_diagonal",
     "ell_from_coo",
     "ell_from_dense",
     "ell_matvec",
     "ell_to_dense",
     "random_bsr_spd",
-    "SlicedBSR",
-    "slice_bsr",
-    "sliced_bsr_matvec",
-    "SymSlicedBSR",
-    "slice_bsr_sym",
-    "sliced_matvec_any",
-    "sym_sliced_matvec",
-    "sliced_mm",
-    "sliced_mmT",
-    "sliced_mTm",
 ]

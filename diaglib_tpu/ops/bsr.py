@@ -1,47 +1,42 @@
-"""Block-sparse-row (BSR) operator with a Pallas TPU SpMM kernel.
+"""Block-sparse-row (BSR) operator and its SpMM.
 
 The reference never materializes the matrix — users supply ``matvec``
-callbacks (README.md:30-44).  For the TPU framework the north-star workload
-(BASELINE.md) is a large sparse operator, so this module provides the
-canonical high-performance callback: a BSR matrix whose row-block matvec
-runs as a Pallas kernel tiled for the MXU.
+callbacks (README.md:30-44).  The benchmark's flagship workload is a large
+sparse operator, so this module provides the canonical callback: a BSR
+matrix whose row-block matvec is plain ``jax.numpy`` that XLA compiles for
+the device: one gather of x blocks and one batched matmul per block row.
 
-Layout: vectors are rows (k, n) like everywhere in this library; the kernel
+Layout: vectors are rows (k, n) like everywhere in this library; the matvec
 computes ``y = x @ A^T`` (i.e. y_i = A x_i per row) as
 
     y[:, r*B:(r+1)*B] = sum_e in row r   x[:, col_e*B:(col_e+1)*B] @ T_e
 
 with ``T_e = blocks[e]^T`` stored pre-transposed so the inner contraction
-is a plain (k, B) @ (B, B) MXU matmul.
-
-Kernel structure (one grid step per nonzero block, entries sorted by row):
-the scalar-prefetched ``cols``/``rows`` arrays drive the BlockSpec index
-maps, so Pallas pipelines the (k, B) x-slices and (B, B) blocks from HBM
-automatically; the output block lives in VMEM across consecutive grid steps
-of the same row (TPU grids execute sequentially — accumulation is safe) and
-is zeroed at each row's first entry.
+is a plain (k, B) @ (B, B) matmul.  Every block row holds the same number
+``row_len`` of entries (rows with fewer are padded with explicit zero
+blocks), so a row's sum is one (k, row_len*B) @ (row_len*B, B) product and
+no scatter is needed: the result is deterministic.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 __all__ = [
     "BSRMatrix",
+    "bsr_astype",
     "bsr_from_dense",
     "bsr_to_dense",
     "bsr_matvec",
     "bsr_diagonal",
     "random_bsr_spd",
 ]
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 @jax.tree_util.register_dataclass
@@ -51,17 +46,18 @@ class BSRMatrix:
 
     blocks_t: (nnzb, B, B) — the e-th block stored TRANSPOSED (ready for
               ``x_blk @ blocks_t[e]``).
-    rows:     (nnzb,) int32 block-row index of each entry (sorted ascending).
+    rows:     (nnzb,) int32 block-row index of each entry.
     cols:     (nnzb,) int32 block-col index of each entry.
-    row_start:(nbr,) int32 — index of the first entry of each block row
-              (entries are contiguous per row).
     n:        matrix dimension (nbr * B).
+
+    Entries are sorted by row and every block row holds exactly
+    ``row_len = nnzb // nbr`` of them (padding entries carry zero blocks);
+    the builders below guarantee this.
     """
 
     blocks_t: jax.Array
     rows: jax.Array
     cols: jax.Array
-    row_start: jax.Array
     n: int = dataclasses.field(metadata=dict(static=True))
     block: int = dataclasses.field(metadata=dict(static=True))
 
@@ -73,6 +69,32 @@ class BSRMatrix:
     def nnz(self) -> int:
         return self.nnzb * self.block * self.block
 
+    @property
+    def row_len(self) -> int:
+        nbr = self.n // self.block
+        if self.nnzb % nbr:
+            raise ValueError(f"{self.nnzb} entries do not fill {nbr} block "
+                             "rows evenly: pad the rows with zero blocks")
+        return self.nnzb // nbr
+
+
+def _pad_rows(entries, nbr: int):
+    """Sort (row, col, payload) entries by row and pad every block row to
+    the longest row's length with (row, col, None) zero-block entries; a
+    padding entry takes the first column the row does not use yet."""
+    by_row = [[] for _ in range(nbr)]
+    for e in entries:
+        by_row[e[0]].append(e)
+    row_len = max(len(r) for r in by_row)
+    out = []
+    for r, row in enumerate(by_row):
+        used = {e[1] for e in row}
+        free = (c for c in range(nbr) if c not in used)
+        row = sorted(row, key=lambda e: e[1])
+        row += [(r, next(free), None) for _ in range(row_len - len(row))]
+        out += row
+    return out
+
 
 def bsr_from_dense(a, block: int) -> BSRMatrix:
     """Build a BSR matrix from a dense array, dropping all-zero blocks."""
@@ -81,32 +103,19 @@ def bsr_from_dense(a, block: int) -> BSRMatrix:
     if n % block or a.shape[0] != a.shape[1]:
         raise ValueError("dense matrix must be square with n % block == 0")
     nbr = n // block
-    rows, cols, blocks = [], [], []
+    entries = []
     for r in range(nbr):
-        found = False
         for c in range(nbr):
             blk = a[r * block:(r + 1) * block, c * block:(c + 1) * block]
             if np.any(blk != 0.0):
-                rows.append(r)
-                cols.append(c)
-                blocks.append(blk.T)  # pre-transposed
-                found = True
-        if not found:
-            # every block row must carry >= 1 entry: the Pallas kernels
-            # zero an output tile only at a row's first entry, so an
-            # empty row's tile would hold uninitialized memory.  (An
-            # output-side mask is NOT an option: adding one to the hot
-            # path changed XLA's fusion inside solver while_loops and
-            # broke emulated-f64 convergence — pad the pattern instead.)
-            rows.append(r)
-            cols.append(r)
-            blocks.append(np.zeros((block, block), a.dtype))
+                entries.append((r, c, blk.T))  # pre-transposed
+    entries = _pad_rows(entries, nbr)
+    zero = np.zeros((block, block), a.dtype)
     return BSRMatrix(
-        blocks_t=jnp.asarray(np.stack(blocks)),
-        rows=jnp.asarray(rows, jnp.int32),
-        cols=jnp.asarray(cols, jnp.int32),
-        row_start=jnp.asarray(
-            np.searchsorted(np.asarray(rows), np.arange(nbr)), jnp.int32),
+        blocks_t=jnp.asarray(np.stack(
+            [zero if e[2] is None else e[2] for e in entries])),
+        rows=jnp.asarray([e[0] for e in entries], jnp.int32),
+        cols=jnp.asarray([e[1] for e in entries], jnp.int32),
         n=n,
         block=block,
     )
@@ -127,127 +136,53 @@ def bsr_to_dense(m: BSRMatrix):
 
 def bsr_diagonal(m: BSRMatrix):
     """(n,) main diagonal — the input to mprec-style preconditioners."""
-    nbr = m.n // m.block
-    is_diag = m.rows == m.cols
-    contrib = jax.vmap(jnp.diagonal)(m.blocks_t)  # transpose shares the diag
-    d = jnp.zeros((nbr, m.block), m.blocks_t.dtype)
-    d = d.at[m.rows].add(jnp.where(is_diag[:, None], contrib, 0.0))
-    return d.reshape(-1)
+    nbr, L = m.n // m.block, m.row_len
+    is_diag = (m.rows == m.cols).reshape(nbr, L, 1)
+    contrib = jnp.diagonal(m.blocks_t, axis1=1, axis2=2).reshape(nbr, L, -1)
+    return jnp.sum(jnp.where(is_diag, contrib, 0.0), axis=1).reshape(-1)
 
 
-def _spmm_kernel(rows_ref, cols_ref, first_ref, x_ref, blk_ref, o_ref):
-    @pl.when(first_ref[pl.program_id(0)] == 1)
-    def _():
-        o_ref[:, :] = jnp.zeros_like(o_ref)
+def bsr_astype(m: BSRMatrix, dtype) -> BSRMatrix:
+    """The same operator with its blocks stored in ``dtype``.
 
-    o_ref[:, :] += jnp.dot(x_ref[:, :], blk_ref[0],
-                           preferred_element_type=o_ref.dtype)
-
-
-def _spmm_pallas(m: BSRMatrix, x, interpret: bool):
-    k, n = x.shape
-    B = m.block
-    first = jnp.concatenate(
-        [jnp.ones((1,), jnp.int32),
-         (m.rows[1:] != m.rows[:-1]).astype(jnp.int32)])
-    # index maps must stay int32 and may not capture constants: with
-    # jax_enable_x64 a literal 0 traces as i64 (Mosaic cannot legalize it),
-    # so zeros are derived from the int32 index argument instead
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,  # rows, cols, first
-        grid=(m.nnzb,),
-        in_specs=[
-            pl.BlockSpec((k, B),
-                         lambda e, rows, cols, first: (e * 0, cols[e]),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, B, B),
-                         lambda e, rows, cols, first: (e, e * 0, e * 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((k, B),
-                               lambda e, rows, cols, first: (e * 0, rows[e]),
-                               memory_space=pltpu.VMEM),
-    )
-    # NOTE: every block row must have >= 1 entry (builders enforce this by
-    # padding empty rows with a zero block) — the kernel zeroes an output
-    # tile only at a row's first entry, so an uncovered row's tile would
-    # hold uninitialized memory.  Masking the output here instead was
-    # tried and REVERTED: the extra ops changed XLA's fusion inside
-    # solver while_loops and broke emulated-f64 convergence.
-    return pl.pallas_call(
-        _spmm_kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((k, n), x.dtype),
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m.nnzb * k * B * B,
-            bytes_accessed=m.nnzb * (B * B + 2 * k * B) * x.dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(m.rows, m.cols, first, x, m.blocks_t)
+    Mixed-precision ladders run their f32 tier over an f32 store and their
+    f64 tier over an f64 store holding the same values (cast up from the
+    f32-generated blocks, so the two tiers see one operator)."""
+    return dataclasses.replace(m, blocks_t=m.blocks_t.astype(dtype))
 
 
-def _segment_spmm(xb, rows, cols, blocks_t, nbr_out: int, chunk: int = 64,
-                  init=None):
-    """Gather x block-columns, batched matmul, segment-add into block rows.
+def _row_spmm(xb, cols, blocks_t):
+    """Row-uniform block SpMM: gather x blocks, one matmul per block row.
 
-    xb: (nbc, k, B) source block-columns; rows/cols: (nnzb,) entry indices;
-    blocks_t: (nnzb, B, B) pre-transposed blocks.  Returns (nbr_out, k, B).
+    xb: (nbc, k, B) source block-columns; cols: (nbr, L) block column of
+    each row's entries; blocks_t: (nbr * L, B, B) pre-transposed blocks in
+    row order.  Returns (nbr, k, B).
 
-    Entries are processed in chunks inside a scan: one flat batched einsum
-    over all nnzb blocks makes XLA materialize O(nnzb * B^2) temporaries
-    (several copies under f64 emulation — tens of GB at production sizes).
+    The contraction states HIGHEST precision: a GPU may otherwise run an
+    f32 matmul in TF32 (about three decimal digits), which would stall the
+    f32 tier of a mixed-precision ladder above its handoff tolerance.
     """
-    k, B = xb.shape[1], xb.shape[2]
-    nnzb = blocks_t.shape[0]
-    nchunk = -(-nnzb // chunk)
-    pad = nchunk * chunk - nnzb
-    if pad:
-        # pad with a zero block pointing at col 0 / accumulating into row 0
-        cols = jnp.pad(cols, (0, pad))
-        rows = jnp.pad(rows, (0, pad))
-        blocks_t = jnp.pad(blocks_t, ((0, pad), (0, 0), (0, 0)))
-
-    def body(acc, ch):
-        c, r, blk = ch
-        gathered = jnp.take(xb, c, axis=0)                 # (chunk, k, B)
-        # 2x/0.5 scaling: see utils/mm.py (TPU f64 emulation loses
-        # precision on value-correlated contractions)
-        prods = jnp.einsum("ekb,ebc->ekc", gathered, 2.0 * blk) * 0.5
-        return acc.at[r].add(prods), None
-
-    if init is None:
-        init = jnp.zeros((nbr_out, k, B), xb.dtype)
-    out, _ = jax.lax.scan(
-        body, init,
-        (cols.reshape(nchunk, chunk), rows.reshape(nchunk, chunk),
-         blocks_t.reshape(nchunk, chunk, B, B)))
-    return out
+    nbr, L = cols.shape
+    B = blocks_t.shape[-1]
+    gathered = jnp.take(xb, cols, axis=0)                  # (nbr, L, k, B)
+    return jnp.einsum("rjkb,rjbc->rkc", gathered,
+                      blocks_t.reshape(nbr, L, B, B), precision=_HI)
 
 
-def _spmm_reference(m: BSRMatrix, x, chunk: int = 64):
-    """Pure-jnp fallback built on the chunked segment-SpMM core."""
-    B = m.block
-    k = x.shape[0]
-    nbr = m.n // B
-    xb = x.reshape(k, nbr, B).transpose(1, 0, 2)           # (nbc, k, B)
-    out = _segment_spmm(xb, m.rows, m.cols, m.blocks_t, nbr, chunk)
-    return out.transpose(1, 0, 2).reshape(k, m.n)
-
-
-def bsr_matvec(m: BSRMatrix, *, force_reference: bool = False):
+def bsr_matvec(m: BSRMatrix):
     """Row-block matvec closure ``x: (k, n) -> (k, n)`` for the solvers.
 
-    Uses the Pallas kernel on TPU for f32/bf16; the segment-sum reference
-    path elsewhere (CPU meshes, tests) and for float64, which Mosaic's MXU
-    lowering does not support (XLA's emulated-f64 matmul handles it).
+    The product runs in the promoted dtype of ``x`` and the store.
     """
+    B = m.block
+    nbr = m.n // B
+    L = m.row_len
 
     def mv(x):
-        if (force_reference or jax.default_backend() != "tpu"
-                or m.blocks_t.dtype == jnp.float64):
-            return _spmm_reference(m, x)
-        return _spmm_pallas(m, x, interpret=False)
+        k = x.shape[0]
+        xb = x.reshape(k, nbr, B).transpose(1, 0, 2)       # (nbc, k, B)
+        out = _row_spmm(xb, m.cols.reshape(nbr, L), m.blocks_t)
+        return out.transpose(1, 0, 2).reshape(k, m.n)
 
     return mv
 
@@ -284,15 +219,18 @@ def random_bsr_spd(n: int, block: int, blocks_per_row: int, key,
                 pair_set.add((lo, hi))
     pairs = sorted(pair_set)                      # upper-triangle pairs
     n_pairs = len(pairs)
-    entries = [(r, r, -1, False) for r in range(nbr)]   # (row, col, pair, transposed)
+    # (row, col, (pair, transposed)); pair -1 = diagonal block
+    entries = [(r, r, (-1, False)) for r in range(nbr)]
     for pidx, (r, c) in enumerate(pairs):
-        entries.append((r, c, pidx, False))
-        entries.append((c, r, pidx, True))
-    entries.sort(key=lambda t: (t[0], t[1]))
+        entries.append((r, c, (pidx, False)))
+        entries.append((c, r, (pidx, True)))
+    entries = _pad_rows(entries, nbr)    # padding: pair -2, a zero block
     rows = np.asarray([t[0] for t in entries], np.int32)
     cols = np.asarray([t[1] for t in entries], np.int32)
-    pair_of = np.asarray([t[2] for t in entries], np.int32)
-    transposed = np.asarray([t[3] for t in entries], bool)
+    pair_of = np.asarray([-2 if t[2] is None else t[2][0] for t in entries],
+                         np.int32)
+    transposed = np.asarray([t[2] is not None and t[2][1] for t in entries],
+                            bool)
     nnzb = len(entries)
 
     rng = np.random.default_rng(int(jax.random.randint(key, (), 0, 2**31 - 1)))
@@ -337,7 +275,7 @@ def random_bsr_spd(n: int, block: int, blocks_per_row: int, key,
 
         # assemble blocks_t (entry e stores A(r_e, c_e)^T)
         blocks_t = jnp.zeros((nnzb, B, B), dtype)
-        dpos = jnp.asarray(np.nonzero(pair_of < 0)[0], jnp.int32)
+        dpos = jnp.asarray(np.nonzero(pair_of == -1)[0], jnp.int32)
         blocks_t = blocks_t.at[dpos].set(dia)  # diagonal blocks: symmetric
         if n_pairs:
             fwd = np.nonzero((pair_of >= 0) & ~transposed)[0]
@@ -355,8 +293,6 @@ def random_bsr_spd(n: int, block: int, blocks_per_row: int, key,
         blocks_t=blocks_t,
         rows=jnp.asarray(rows),
         cols=jnp.asarray(cols),
-        row_start=jnp.asarray(
-            np.searchsorted(rows, np.arange(nbr)), jnp.int32),
         n=n,
         block=block,
     )

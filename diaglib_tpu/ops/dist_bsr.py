@@ -3,81 +3,58 @@
 This is the north-star distributed operator from SURVEY.md §2.5: the
 reference (Molecolab-Pisa/diaglib) is serial Fortran and only ever touches
 the matrix through user matvec callbacks, so the *scalable* matvec is a new
-TPU-native component with no reference counterpart.
+component with no reference counterpart.
 
 Design
 ------
 The block rows of a :class:`~diaglib_tpu.ops.bsr.BSRMatrix` are partitioned
 contiguously over the 1-D device mesh (same ``"n"`` axis the solvers shard
-their (k, n) vector blocks along, see parallel/sharding.py).  Each nonzero
-block A(r, c) lives on the device owning block-row r and is grouped by the
-**ring offset** ``s = (shard(c) - shard(r)) mod D`` — the number of mesh
-hops between the x-shard it consumes and the y-shard it produces:
+their (k, n) vector blocks along, see parallel/sharding.py).  Each device
+holds its rows' entries (a contiguous slice of the row-uniform store).  An
+entry A(r, c) on the device owning block-row r needs the x shard owning
+block-col c, which sits ``s = (shard(c) - shard(r)) mod D`` hops up the
+ring:
 
-* ``s = 0``: the diagonal group — consumes the device's own x shard;
-  for banded operators this holds nearly all entries.
-* ``s != 0``: halo groups — the needed x shard is fetched with ONE
-  ``lax.ppermute`` per *nonempty* offset (empty offsets are skipped at
-  trace time: a banded operator with bandwidth < n/D issues exactly two
-  small permutes, to its ring neighbours, regardless of D).
+* ``s = 0``: the device's own x shard; for banded operators this holds
+  nearly all entries.
+* ``s != 0``: halo shards — each fetched with ONE ``lax.ppermute`` per
+  *nonempty* offset (empty offsets are skipped at trace time: a banded
+  operator with bandwidth < n/D issues exactly two small permutes, to its
+  ring neighbours, regardless of D).  On GPUs the permutes run over NCCL.
 
-XLA schedules the collective-permutes asynchronously, so the (large) s=0
-local SpMM overlaps the (small) halo transfers — the TPU-native analogue of
-compute/communication overlap in a halo-exchange SpMV.
-
-Per-group entry lists are padded to a static per-offset maximum across
-devices (padding points at an all-zero block accumulating into local row 0),
-keeping every shape static under jit.  The local compute is the same
-chunked segment-SpMM core as the single-device operator (f64-safe on TPU,
-see ops/bsr.py and utils/mm.py).
+The fetched shards are concatenated into one local x buffer, each entry's
+column index is remapped into that buffer on the host, and the local
+compute is the row-uniform SpMM core of the single-device operator
+(ops/bsr.py).  :func:`distribute_bsr` places each device's data on that
+device; pass the result to the jitted solve as an argument.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import PartitionSpec as P
+from jax.sharding import NamedSharding, PartitionSpec as P
 
-from .bsr import BSRMatrix, _segment_spmm
+from .bsr import BSRMatrix, _row_spmm
 
 __all__ = ["DistBSRMatrix", "distribute_bsr", "dist_bsr_matvec"]
 
 
-def _ring_offset_groups(rows, cols, nbr_loc: int, D: int, pad_row: int):
-    """Group entries by ring offset ``s = (shard(col) - shard(row)) mod D``.
+def _ring_layout(cols, nbr_loc: int, D: int, L: int):
+    """Host-side (numpy) pattern reorganization.
 
-    Host-side (numpy) pattern reorganization shared by the plain and the
-    integer-sliced distributed operators.  Returns ``(steps, groups)`` where
-    ``groups[i] = (idx, lr, lc)`` are (D, P_i) int32 arrays per nonempty
-    offset ``steps[i]``: global entry index, LOCAL block row on the owning
-    shard, LOCAL block col on the source x shard.  Rows per device stay
-    sorted (``rows`` is sorted globally).  Padding slots get
-    ``idx = len(rows)`` (one past the end), ``lr = pad_row``, ``lc = 0``.
+    Returns ``(steps, loc)``: the sorted nonempty ring offsets, and per
+    device the (nbr_loc, L) index of each entry's x block in that device's
+    halo buffer (the concatenation of the x shards of ``steps``, in order).
     """
-    rows = np.asarray(rows)
-    cols = np.asarray(cols)
-    dest = rows // nbr_loc
-    src = cols // nbr_loc
-    s_of = (src - dest) % D
-    steps = tuple(sorted(set(int(s) for s in s_of)))
-    groups = []
-    for s in steps:
-        counts = [int(np.sum((dest == d) & (s_of == s))) for d in range(D)]
-        p = max(counts)
-        idx = np.full((D, p), len(rows), np.int32)
-        lr = np.full((D, p), pad_row, np.int32)
-        lc = np.zeros((D, p), np.int32)
-        for d in range(D):
-            sel = np.nonzero((dest == d) & (s_of == s))[0]
-            idx[d, : len(sel)] = sel
-            lr[d, : len(sel)] = rows[sel] - d * nbr_loc
-            lc[d, : len(sel)] = cols[sel] % nbr_loc
-        groups.append((idx, lr, lc))
-    return steps, groups
+    cols = np.asarray(cols).reshape(D, nbr_loc, L)
+    s_of = (cols // nbr_loc - np.arange(D)[:, None, None]) % D
+    steps = tuple(sorted(set(s_of.ravel().tolist())))
+    loc = np.searchsorted(steps, s_of) * nbr_loc + cols % nbr_loc
+    return steps, loc.astype(np.int32)
 
 
 @jax.tree_util.register_dataclass
@@ -85,17 +62,15 @@ def _ring_offset_groups(rows, cols, nbr_loc: int, D: int, pad_row: int):
 class DistBSRMatrix:
     """BSR matrix partitioned by block row over a D-device mesh axis.
 
-    Per nonempty ring offset ``steps[i]`` the entry data is stacked with a
-    leading device axis (sharded over the mesh under shard_map):
-
-    blocks_t[i]: (D, P_i, B, B) pre-transposed blocks (zero-padded);
-    loc_rows[i]: (D, P_i) int32 block row LOCAL to the owning shard;
-    loc_cols[i]: (D, P_i) int32 block col LOCAL to the source x shard.
+    blocks_t: (D, nbr_loc * L, B, B) pre-transposed blocks of each
+              device's rows (sharded over the mesh on the leading axis);
+    loc_cols: (D, nbr_loc, L) int32 index of each entry's x block in the
+              device's halo buffer (see :func:`_ring_layout`);
+    steps:    the nonempty ring offsets whose x shards the buffer holds.
     """
 
-    blocks_t: tuple
-    loc_rows: tuple
-    loc_cols: tuple
+    blocks_t: jax.Array
+    loc_cols: jax.Array
     steps: tuple = dataclasses.field(metadata=dict(static=True))
     n: int = dataclasses.field(metadata=dict(static=True))
     block: int = dataclasses.field(metadata=dict(static=True))
@@ -106,37 +81,28 @@ class DistBSRMatrix:
         return self.n // self.ndev
 
 
-def distribute_bsr(m: BSRMatrix, n_shards: int) -> DistBSRMatrix:
-    """Partition a BSRMatrix's block rows over ``n_shards`` mesh slots.
+def distribute_bsr(m: BSRMatrix, sharding) -> DistBSRMatrix:
+    """Partition a BSRMatrix's block rows over the devices of a mesh axis.
 
-    The sparsity pattern is reorganized on the host (index arrays only);
-    block data is re-gathered on device.  Requires the block-row count to
-    divide evenly (pad the operator if it does not).
+    ``sharding`` is the :class:`~diaglib_tpu.parallel.VectorSharding` the
+    solve will use.  The sparsity pattern is reorganized on the host (index
+    arrays only); every leaf is placed with its leading (device) axis
+    sharded over the mesh, so each device holds only its own rows.
+    Requires the block-row count to divide evenly (pad the operator if it
+    does not).
     """
     B = m.block
     nbr = m.n // B
-    D = int(n_shards)
+    D = sharding.mesh.shape[sharding.axis]
     if nbr % D:
         raise ValueError(f"block rows ({nbr}) must divide over {D} shards")
-    nbr_loc = nbr // D
-
-    steps, groups = _ring_offset_groups(m.rows, m.cols, nbr_loc, D,
-                                        pad_row=0)
-
-    # index nnzb points at an appended all-zero block (safe padding target)
-    zero_blk = jnp.zeros((1, B, B), m.blocks_t.dtype)
-    blocks_ext = jnp.concatenate([m.blocks_t, zero_blk], axis=0)
-
-    blocks_l, lrows_l, lcols_l = [], [], []
-    for idx, lr, lc in groups:
-        blocks_l.append(jnp.take(blocks_ext, jnp.asarray(idx), axis=0))
-        lrows_l.append(jnp.asarray(lr))
-        lcols_l.append(jnp.asarray(lc))
-
+    nbr_loc, L = nbr // D, m.row_len
+    steps, loc = _ring_layout(m.cols, nbr_loc, D, L)
+    placed = NamedSharding(sharding.mesh, P(sharding.axis))
     return DistBSRMatrix(
-        blocks_t=tuple(blocks_l),
-        loc_rows=tuple(lrows_l),
-        loc_cols=tuple(lcols_l),
+        blocks_t=jax.device_put(
+            m.blocks_t.reshape(D, nbr_loc * L, B, B), placed),
+        loc_cols=jax.device_put(loc, placed),
         steps=steps,
         n=m.n,
         block=B,
@@ -160,40 +126,31 @@ def dist_bsr_matvec(dm: DistBSRMatrix, sharding):
             f"'{axis}' has {mesh.shape[axis]} devices")
     B = dm.block
     nbr_loc = dm.n_local // B
-    steps = dm.steps
 
-    def local(x_loc, *step_data):
-        # x_loc: (k, n_local); step_data: D-sharded (1, P, ...) leaves
+    def local(x_loc, blocks, loc_cols):
+        # x_loc: (k, n_local); blocks/loc_cols: this device's (1, ...) data
         k = x_loc.shape[0]
-        # the scan carry inside shard_map must be device-varying like the
-        # shard data it accumulates
-        y = jax.lax.pcast(jnp.zeros((nbr_loc, k, B), x_loc.dtype),
-                          axis, to="varying")
-        for i, s in enumerate(steps):
-            blocks, lr, lc = (a[0] for a in step_data[3 * i: 3 * i + 3])
+        parts = []
+        for s in dm.steps:
             if s == 0:
-                x_s = x_loc
+                parts.append(x_loc)
             else:
-                # fetch the shard s hops up-ring: one collective permute,
-                # scheduled async so it overlaps the s=0 local compute
+                # fetch the shard s hops up-ring: one collective permute
                 perm = [(j, (j - s) % D) for j in range(D)]
-                x_s = jax.lax.ppermute(x_loc, axis, perm)
-            xb = x_s.reshape(k, nbr_loc, B).transpose(1, 0, 2)
-            y = _segment_spmm(xb, lr, lc, blocks, nbr_loc, init=y)
+                parts.append(jax.lax.ppermute(x_loc, axis, perm))
+        halo = jnp.concatenate(parts, axis=1)
+        xb = halo.reshape(k, len(parts) * nbr_loc, B).transpose(1, 0, 2)
+        y = _row_spmm(xb, loc_cols[0], blocks[0])
         return y.transpose(1, 0, 2).reshape(k, nbr_loc * B)
-
-    flat_data = []
-    for i in range(len(steps)):
-        flat_data += [dm.blocks_t[i], dm.loc_rows[i], dm.loc_cols[i]]
 
     shmapped = jax.shard_map(
         local,
         mesh=mesh,
-        in_specs=(P(None, axis),) + (P(axis),) * len(flat_data),
+        in_specs=(P(None, axis), P(axis), P(axis)),
         out_specs=P(None, axis),
     )
 
     def mv(x):
-        return shmapped(x, *flat_data)
+        return shmapped(x, dm.blocks_t, dm.loc_cols)
 
     return mv

@@ -1,16 +1,13 @@
 """ELLPACK sparse operator for scalar-granular (non-block) sparsity.
 
-The BSR operator (ops/bsr.py) is the TPU speed-of-light path: its B x B
-blocks ride the MXU.  Matrices with *unstructured scalar* sparsity (no
-block structure to exploit) cannot use the MXU at all — each nonzero does
-one multiply — so the TPU-idiomatic format is ELLPACK: every row padded to
-a fixed ``L`` slots, giving static shapes and fully vectorized VPU
-gather/FMA per slot.  One slot = one (k, n) gather of x plus an
-elementwise multiply-accumulate; the whole matvec is a ``lax.scan`` over
-the L slots (L = max nonzeros/row, typically tens).
-
-Because the arithmetic is elementwise (no dot_general), the TPU f64
-emulation defect that utils/mm.py routes around does not apply here.
+The BSR operator (ops/bsr.py) serves block-structured sparsity: its B x B
+blocks become dense matmuls.  Matrices with *unstructured scalar* sparsity
+(no block structure to exploit) have no matmul to offer — each nonzero
+does one multiply — so the format here is ELLPACK: every row padded to a
+fixed ``L`` slots, giving static shapes and a vectorized gather/FMA per
+slot.  One slot = one (k, n) gather of x plus an elementwise
+multiply-accumulate; the whole matvec is a ``lax.scan`` over the L slots
+(L = max nonzeros/row, typically tens).
 
 Padding slots point at column 0 with value 0.0.
 """

@@ -1,4 +1,4 @@
-"""Numerically hardened orthogonalization kernels (TPU-native, masked).
+"""Numerically hardened orthogonalization kernels (masked).
 
 Re-designs the reference's orthogonalization layer (diaglib.f90:3049-3663)
 for XLA: every routine is a pure function over *row-major* vector blocks
@@ -153,9 +153,8 @@ def ortho_cd(u, mask=None, max_iter: int = _MAXIT):
         # must drop sharply pass over pass; a stalled rcond means the block
         # is (numerically) rank deficient and can NEVER converge here —
         # bail to the QR fallback instead of burning max_iter passes
-        # (on TPU each pass costs ~ms; deficient blocks appear routinely
-        # near solver convergence when residuals of locked-adjacent roots
-        # degenerate)
+        # (deficient blocks appear routinely near solver convergence when
+        # residuals of locked-adjacent roots degenerate)
         stalled = (s.it > 0) & (rcond >= 0.5 * s.prev_rcond) & (~converged)
         done = converged | failed | stalled
         ok = converged
@@ -188,7 +187,10 @@ def ortho_qr(u, mask=None, extra=None):
     k, n = u.shape
     mask = _rowmask(mask, k)
     perm = jnp.argsort(~mask, stable=True)
-    inv_perm = jnp.argsort(perm, stable=True)
+    # inverse permutation by a scatter: an argsort of ``perm`` trips XLA
+    # GPU's permutation-sort simplifier under x64 (s32/s64 mismatch)
+    inv_perm = jnp.zeros_like(perm).at[perm].set(
+        jnp.arange(k, dtype=perm.dtype), unique_indices=True)
     u_p = jnp.take(u, perm, axis=0)
     # substitute masked (now trailing) rows with unit vectors so QR stays
     # well-posed; they never influence the leading (valid) Q columns.
@@ -213,7 +215,7 @@ def _ortho_or_qr(u, mask):
     Returns (u, growth, cd_ok): when ortho_cd fails, u comes from QR and
     callers must compute the explicit overlap to test convergence.  The QR
     branch sits behind a ``lax.cond`` so the expensive full-height
-    Householder QR (~100x the Cholesky path on an emulated-f64 (k, n)
+    Householder QR (far costlier than the Cholesky path on a (k, n)
     block) only runs when the shift ladder actually failed — like the
     reference, where the fallback is a rarely-taken error path.
     """
@@ -245,9 +247,7 @@ def _iterate_vs_x(project, x_for_overlap, u, umask, max_iter):
     def body(s: _VsXState):
         uu = project(s.u)
         uu, growth, cd_ok = _ortho_or_qr(uu, umask)
-        # overlap computed as (u x^T): same Frobenius norm as (x u^T), and
-        # this operand order lets a SplitF64 x ride the sliced route's
-        # b side (no emulated-f64 split pass; utils/mm.py)
+        # overlap computed as (u x^T): same Frobenius norm as (x u^T)
         overlap = mmT(uu, x_for_overlap)
         explicit = jnp.sqrt(jnp.sum(overlap * overlap))
         xu_norm = jnp.where(cd_ok, growth * _eps(dtype), explicit)
@@ -260,29 +260,20 @@ def _iterate_vs_x(project, x_for_overlap, u, umask, max_iter):
     return out.u, out.done
 
 
-def ortho_vs_x(x, u, xmask=None, umask=None, max_iter: int = _MAXIT,
-               xsplit=None):
+def ortho_vs_x(x, u, xmask=None, umask=None, max_iter: int = _MAXIT):
     """Orthogonalize block u against orthonormal x, then orthonormalize u.
 
     Reference: diaglib.f90:3481-3574.  Iterates the projection
     ``u <- u - (u x^T) x`` + orthonormalization until ||x u^T|| < 2*eps,
     estimating the overlap from ortho_cd's growth factor when available.
     Masked rows of x and u are zero and stay zero.
-
-    ``xsplit``: optional :class:`~diaglib_tpu.ops.slicing.SplitF64` of
-    ``x`` (a solver's once-per-iteration split) — every projection and
-    overlap then consumes the f32 components on the sliced route instead
-    of re-splitting the emulated-f64 space per product.
     """
     xmask = _rowmask(xmask, x.shape[0])
     umask = _rowmask(umask, u.shape[0])
-    xm = (xsplit.mask_rows(xmask) if xsplit is not None
-          else jnp.where(xmask[:, None], x, 0.0))
+    xm = jnp.where(xmask[:, None], x, 0.0)
 
     def project(uu):
-        from ..utils.mm import wide_site
-        with wide_site("proj"):
-            return uu - mm(mmT(uu, xm), xm)
+        return uu - mm(mmT(uu, xm), xm)
 
     u_out, done = _iterate_vs_x(project, xm, u, umask, max_iter)
     return u_out, done
@@ -354,17 +345,13 @@ def b_ortho_svd(u, bu, mask=None, tol_svd: float = 1.0e-5):
     return u_new, bu_new
 
 
-def b_ortho_vs_x(x, bx, u, xmask=None, umask=None, max_iter: int = _MAXIT,
-                 xsplit=None, bxsplit=None):
+def b_ortho_vs_x(x, bx, u, xmask=None, umask=None, max_iter: int = _MAXIT):
     """B-orthogonalize u against x (metric overlap bx^T u), then
-    orthonormalize u; iterate (diaglib.f90:3576-3663).
-    ``xsplit``/``bxsplit``: optional SplitF64 of x / bx (see ortho_vs_x)."""
+    orthonormalize u; iterate (diaglib.f90:3576-3663)."""
     xmask = _rowmask(xmask, x.shape[0])
     umask = _rowmask(umask, u.shape[0])
-    xm = (xsplit.mask_rows(xmask) if xsplit is not None
-          else jnp.where(xmask[:, None], x, 0.0))
-    bxm = (bxsplit.mask_rows(xmask) if bxsplit is not None
-           else jnp.where(xmask[:, None], bx, 0.0))
+    xm = jnp.where(xmask[:, None], x, 0.0)
+    bxm = jnp.where(xmask[:, None], bx, 0.0)
 
     def project(uu):
         return uu - mm(mmT(uu, bxm), xm)

@@ -7,7 +7,7 @@ Gram/Rayleigh-Ritz contractions become psum-style collectives inserted by
 XLA's SPMD partitioner, and the small reduced problems stay replicated.
 
 Multi-host: ``multihost.initialize`` + ``multihost.global_mesh`` span the
-mesh over processes (pod slices over DCN; N CPU processes in tests), and
+mesh over processes (one per host; N CPU processes in tests), and
 everything downstream is mesh-agnostic.  See parallel/multihost.py.
 """
 

@@ -1,6 +1,6 @@
 """Multi-process (multi-host) dry run: N processes x M virtual CPU devices.
 
-Validates the process-spanning path end to end without a pod (SURVEY.md
+Validates the process-spanning path end to end on one machine (SURVEY.md
 §2.5 north star; the reference is single-process Fortran, §2.5):
 
 * ``jax.distributed.initialize`` over a local coordinator (gloo CPU
@@ -8,8 +8,7 @@ Validates the process-spanning path end to end without a pod (SURVEY.md
 * a global mesh spanning both processes (parallel/multihost.py),
 * the sharded Davidson solver on (a) a dense operator with
   GSPMD-inserted collectives and (b) the row-partitioned distributed BSR
-  operator whose ppermute halo exchange now crosses the process boundary
-  (the DCN stand-in),
+  operator whose ppermute halo exchange now crosses the process boundary,
 * eigenvalues cross-checked against a dense local oracle on every
   process.
 
@@ -61,7 +60,6 @@ def _worker(process_id: int, num_processes: int, coordinator: str,
         initialize,
         make_global,
         make_replicated,
-        tree_make_global,
     )
     from diaglib_tpu.problems import symm_matrix
     from diaglib_tpu.solvers import davidson
@@ -98,8 +96,7 @@ def _worker(process_id: int, num_processes: int, coordinator: str,
     nb = 4 * B * D
     m = random_bsr_spd(nb, B, 2, jax.random.PRNGKey(7), dtype=jnp.float64,
                        n_low_modes=8)  # deterministic: same on every process
-    dm = distribute_bsr(m, D)
-    dm_g = tree_make_global(dm, mesh, lambda leaf: P("n"))
+    dm_g = distribute_bsr(m, sh)
     diag_g = make_global(np.asarray(bsr_diagonal(m)), mesh, P("n"))
     guess_b = make_global(np.zeros((n_eig, nb)), mesh, P(None, "n"))
 
@@ -117,30 +114,8 @@ def _worker(process_id: int, num_processes: int, coordinator: str,
     assert bool(ok_b), "multihost BSR Davidson did not converge"
     assert err_bsr < 1e-6, f"multihost BSR eig err {err_bsr}"
 
-    # ---- production f64 matvec: Ozaki-sliced operator over processes ----
-    from jax.experimental import multihost_utils
-
-    from diaglib_tpu.ops import (
-        dist_sliced_matvec,
-        distribute_sliced_bsr,
-        slice_bsr,
-    )
-
-    dms = distribute_sliced_bsr(slice_bsr(m), D)
-    dms_g = tree_make_global(dms, mesh, lambda leaf: P("n"))
-    x = np.asarray(jax.random.normal(jax.random.PRNGKey(3), (4, nb)))
-    x_g = make_global(x, mesh, P(None, "n"))
-    y = jax.jit(lambda dms, x: dist_sliced_matvec(
-        dms, sh, interpret=True)(x))(dms_g, x_g)
-    y_host = np.asarray(multihost_utils.process_allgather(y, tiled=True))
-    oracle = x @ np.asarray(bsr_to_dense(m)).T
-    err_sliced = float(np.max(np.abs(y_host - oracle))
-                       / np.max(np.abs(oracle)))
-    assert err_sliced < 1e-13, f"multihost sliced matvec err {err_sliced}"
-
     print(f"MH_DRYRUN_OK process {process_id}/{num_processes} "
-          f"devices={D} dense_err={err_dense:.2e} bsr_err={err_bsr:.2e} "
-          f"sliced_err={err_sliced:.2e}",
+          f"devices={D} dense_err={err_dense:.2e} bsr_err={err_bsr:.2e}",
           flush=True)
 
 

@@ -1,24 +1,22 @@
-"""Multi-host (multi-process) execution: process-spanning meshes over DCN.
+"""Multi-host (multi-process) execution: process-spanning meshes.
 
 The reference is single-process Fortran (SURVEY.md §2.5 — no MPI/NCCL of
-any kind); the multi-host path is a new TPU-native capability required by
-the BASELINE north star ("1 chip / 1 host / >= 2 hosts").  Design:
+any kind); the multi-host path is a new capability ("1 card / 1 host /
+>= 2 hosts").  Design:
 
 * ``initialize()`` wraps :func:`jax.distributed.initialize` and, on CPU,
   selects the gloo collectives backend so the exact same code path is
-  testable with N processes x M virtual host devices (the standard way to
-  exercise a pod-slice program without a pod).
+  testable with N processes x M virtual host devices.
 * ``global_mesh()`` builds a 1-D mesh over ALL global devices in
   process-major order: each host owns a contiguous range of the row
   dimension, so the ring-offset halo exchange of the distributed operators
-  (ops/dist_bsr.py, ops/dist_sliced.py) crosses DCN only at host
-  boundaries — for a banded operator with offsets +-1, exactly one
-  ICI-ring hop per device pair inside a host and one DCN hop per host
-  boundary, issued as a single ``ppermute`` whose intra-host lanes XLA
-  routes over ICI.  Offset groups are processed in ascending ring
-  distance (dist_bsr steps are sorted), so the s=0 local SpMM and the
-  ICI-adjacent fetches are issued before any long DCN hop, letting the
-  async collectives overlap the bulk of the local compute.
+  (ops/dist_bsr.py) crosses the network only at host boundaries — for a
+  banded operator with offsets +-1, one intra-host hop per device pair
+  and one network hop per host boundary, issued as a single ``ppermute``.
+  Offset groups are processed in ascending ring distance (dist_bsr steps
+  are sorted), so the s=0 local SpMM and the near fetches are issued
+  before any long hop, letting the async collectives overlap the bulk of
+  the local compute.
 * ``make_global()`` / ``host_local_guess()`` build process-spanning
   ``jax.Array``s from per-host data — multi-process jit only accepts
   global arrays.
@@ -54,8 +52,9 @@ def initialize(coordinator_address: str | None = None,
                **kwargs) -> None:
     """Join (or start) the multi-process JAX runtime.
 
-    On TPU pods the three arguments are auto-detected from the environment
-    and may be omitted; for CPU testing pass them explicitly.  On the CPU
+    Pass the three arguments explicitly (on a GPU host:
+    ``coordinator_address="localhost:<port>"``); only managed clusters
+    detect them from the environment.  On the CPU
     backend the gloo cross-process collectives implementation is selected
     (the default CPU client has no cross-process transport).
     """
@@ -79,7 +78,7 @@ def global_mesh(axis_name: str = "n") -> Mesh:
     """1-D mesh over ALL global devices, process-major.
 
     ``jax.devices()`` orders devices by process id, so a contiguous block
-    of mesh positions lives on each host — the layout the DCN-aware halo
+    of mesh positions lives on each host — the layout the host-aware halo
     strategy above relies on.
     """
     return Mesh(np.array(jax.devices()), (axis_name,))
@@ -106,9 +105,3 @@ def make_global(x, mesh: Mesh, spec: P):
 def make_replicated(x, mesh: Mesh):
     """Fully replicated global array from identical per-host data."""
     return make_global(x, mesh, P())
-
-
-def tree_make_global(tree, mesh: Mesh, spec_fn):
-    """Map ``make_global`` over a pytree; ``spec_fn(leaf) -> PartitionSpec``."""
-    return jax.tree_util.tree_map(
-        lambda leaf: make_global(leaf, mesh, spec_fn(leaf)), tree)

@@ -1,12 +1,12 @@
 """Mesh and sharding helpers for row-vector blocks.
 
 Design (SURVEY.md §5 "distributed communication backend"): one mesh axis
-``"n"`` spanning the pod slice; every O(n) array is sharded along its last
+``"n"`` spanning the devices; every O(n) array is sharded along its last
 axis with ``P(None, "n")`` (vectors are rows, the long axis lives in lanes);
 reduced matrices (ldu x ldu) are replicated.  Under ``jit``, annotating the
 solver's initial state with these shardings makes XLA insert the
 all-reduces for every Gram contraction ``x @ y.T`` automatically — the
-TPU-native equivalent of the reference linking a parallel BLAS.
+equivalent of the reference linking a parallel BLAS.
 """
 
 from __future__ import annotations

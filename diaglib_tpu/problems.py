@@ -102,8 +102,7 @@ def nonsym_matrix(n: int, key, variant: int = 4, dtype=jnp.float64):
         t = t + jnp.diag(100.0 + jnp.arange(1, n + 1, dtype=dtype))
         p = t.T @ t
         d = jnp.arange(1, n + 1, dtype=dtype) + 2.0
-        # A = P diag(d) P^{-1} with P SPD: Cholesky solve instead of
-        # jnp.linalg.inv — XLA TPU implements LU only for f32/c64
+        # A = P diag(d) P^{-1} with P SPD: a Cholesky solve
         cf = jax.scipy.linalg.cho_factor(p)
         m = p * d[None, :]
         return jax.scipy.linalg.cho_solve(cf, m.T).T
@@ -123,10 +122,8 @@ def nonsym_matrix(n: int, key, variant: int = 4, dtype=jnp.float64):
 
 def _matexp_series(t, terms: int = 12):
     """e^T by the truncated Taylor series, like the reference's ``matexp``
-    (main.f90:1180-1214).  Matmuls only — TPU-friendly, unlike
-    ``jax.scipy.linalg.expm`` whose Pade solves need an f64 LU that XLA
-    TPU does not implement.  ||T|| = 0.01 here, so 12 terms reach
-    ~1e-33 truncation (far below f64 eps)."""
+    (main.f90:1180-1214).  Matmuls only; ||T|| = 0.01 here, so 12 terms
+    reach ~1e-33 truncation (far below f64 eps)."""
     n = t.shape[0]
     acc = jnp.eye(n, dtype=t.dtype)
     term = jnp.eye(n, dtype=t.dtype)
@@ -139,10 +136,11 @@ def _matexp_series(t, terms: int = 12):
 def dense_matvec(a):
     """Row-block matvec closure for a dense symmetric-or-not matrix.
 
-    For rows-as-vectors x, (A x_i)_j = sum_k A_jk x_ik, i.e. x @ A.T.
+    For rows-as-vectors x, (A x_i)_j = sum_k A_jk x_ik, i.e. x @ A.T, at
+    HIGHEST precision (a GPU would otherwise run an f32 product in TF32).
     """
     def mv(x):
-        return x @ a.T
+        return jnp.matmul(x, a.T, precision=jax.lax.Precision.HIGHEST)
 
     return mv
 
@@ -192,73 +190,54 @@ def _guard_denom(denom, scale, rel: float = 1.0e-5):
                      jnp.where(denom < 0.0, -floor, floor), denom)
 
 
-def bsr_casida_tdscf(n: int, block: int, blocks_per_row: int, key,
-                     na: int | None = None, interpret: bool = False):
-    """Flagship-scale Casida problem on Ozaki-sliced BSR operators.
+def bsr_casida_tdscf(n: int, block: int, blocks_per_row: int, key):
+    """Flagship-scale Casida problem on plain BSR operators.
 
     TD-SCF structure (test_scflr protocol, main.f90:732-908 at production
     scale): sigma = I, delta = 0, so spd = smd = identity and the heavy
-    operators are A+B and A-B — two independent SPD block-sparse matrices
-    stored once as int8 slices (ops/bsr_sliced.py) serving BOTH precision
-    tiers of the mixed-precision LR ladder (solvers/mixed.py).
+    operators are A+B and A-B — two independent SPD block-sparse matrices.
 
-    Returns ``(ops_lo, ops_hi, diag_aa, (apb, amb))``: the f32- and
-    f64-tier :class:`~diaglib_tpu.types.LROps` bundles (with the paired
-    diagonal ``lrprec_eff`` preconditioners), the (A+B)/(A-B)-averaged
-    diagonal, and the two underlying SlicedBSR operators (oracles/tests).
+    Returns ``(lo, hi)``: ``(apb, amb)`` store pairs for the f32 and f64
+    tiers of the mixed-precision LR ladder (solvers/mixed.py).  The f64
+    stores hold the f32-generated values cast up, so both tiers see one
+    operator.  Pass them as jit ARGUMENTS and build each tier's
+    :class:`~diaglib_tpu.types.LROps` inside with :func:`casida_tdscf_ops`.
     """
-    from .ops.bsr import random_bsr_spd
-    from .ops.bsr_sliced_sym import slice_bsr_sym
-    from .types import LROps
+    from .ops.bsr import bsr_astype, random_bsr_spd
 
     # A+B and A-B share the diagonal (and its separated low modes) and
     # differ in off-diagonal strength: with independent operators the low
     # modes land on different rows and the product spectrum w^2 ~
     # eig(A+B) eig(A-B) has no diagonal-resolvable low excitations — the
     # paired diagonal preconditioner then stalls (observed at n=65536).
-    # Both are symmetric: the half-bandwidth symmetric store applies
-    # (ops/bsr_sliced_sym.py).
-    apb = slice_bsr_sym(random_bsr_spd(n, block, blocks_per_row, key,
-                                       dtype=jnp.float32, off_scale=0.3),
-                        na=na)
-    amb = slice_bsr_sym(random_bsr_spd(n, block, blocks_per_row, key,
-                                       dtype=jnp.float32, off_scale=0.15),
-                        na=na)
-    ops_lo, ops_hi = casida_tdscf_ops(apb, amb, interpret=interpret)
-    diag_aa = 0.5 * (apb.diagonal + amb.diagonal)
-    return ops_lo, ops_hi, diag_aa, (apb, amb)
+    apb = random_bsr_spd(n, block, blocks_per_row, key, dtype=jnp.float32,
+                         off_scale=0.3)
+    amb = random_bsr_spd(n, block, blocks_per_row, key, dtype=jnp.float32,
+                         off_scale=0.15)
+    hi = tuple(bsr_astype(m, jnp.float64) for m in (apb, amb))
+    return (apb, amb), hi
 
 
-def casida_tdscf_ops(apb, amb, interpret: bool = False, prec: str = "eff"):
-    """(ops_lo, ops_hi) LROps tiers over existing sliced (A+B)/(A-B) stores.
+def casida_tdscf_ops(apb, amb, prec: str = "eff"):
+    """One LROps tier over BSR (A+B)/(A-B) stores, in the stores' dtype.
 
     Jit-traceable: call INSIDE a jitted function whose arguments are the
-    two sliced-store pytrees (either flavor) — closing over multi-GB
-    operators instead bakes them into the program as constants
-    (DESIGN.md §6).  ``prec``: "eff" pairs the bundles with the caslr_eff
-    preconditioner (lrprec_2, called with 1/w); "std" with the caslr one
-    (lrprec_1, called with w) for the S4 driver."""
-    from .ops.bsr_sliced_sym import sliced_matvec_any
+    two store pytrees — closing over multi-GB operators instead bakes them
+    into the program as constants.  ``prec``: "eff" pairs the bundle with
+    the caslr_eff preconditioner (lrprec_2, called with 1/w); "std" with
+    the caslr one (lrprec_1, called with w) for the S4 driver."""
+    from .ops.bsr import bsr_diagonal, bsr_matvec
     from .types import LROps
 
-    n = apb.n
-    diag_aa = 0.5 * (apb.diagonal + amb.diagonal)
+    diag_aa = 0.5 * (bsr_diagonal(apb) + bsr_diagonal(amb))
     ident = lambda x: x  # noqa: E731 — sigma = I, delta = 0 (tdscf)
     make_prec = lrprec_eff if prec == "eff" else lrprec_std
-    ops_hi = LROps(
-        apbmul=sliced_matvec_any(apb, interpret=interpret),
-        ambmul=sliced_matvec_any(amb, interpret=interpret),
+    return LROps(
+        apbmul=bsr_matvec(apb),
+        ambmul=bsr_matvec(amb),
         spdmul=ident, smdmul=ident,
-        lrprec=make_prec(diag_aa, jnp.ones((n,), jnp.float64)),
+        lrprec=make_prec(diag_aa, jnp.ones_like(diag_aa)),
     )
-    f32 = jnp.float32
-    ops_lo = LROps(
-        apbmul=sliced_matvec_any(apb, dtype=f32, interpret=interpret),
-        ambmul=sliced_matvec_any(amb, dtype=f32, interpret=interpret),
-        spdmul=ident, smdmul=ident,
-        lrprec=make_prec(diag_aa.astype(f32), jnp.ones((n,), f32)),
-    )
-    return ops_lo, ops_hi
 
 
 def lrprec_eff(aa_diag, sigma_diag):
@@ -294,7 +273,7 @@ def _band_bsr(n: int, block: int, key, scale: float, dtype=jnp.float32):
     rows = jnp.arange(nbr, dtype=jnp.int32)
     cols = (rows + 1) % nbr
     return BSRMatrix(blocks_t=blocks.transpose(0, 2, 1), rows=rows,
-                     cols=cols, row_start=rows, n=n, block=block)
+                     cols=cols, n=n, block=block)
 
 
 def _bsr_transpose_band(t):
@@ -313,97 +292,70 @@ def _bsr_transpose_band(t):
         blocks_t=t.blocks_t[order].transpose(0, 2, 1),
         rows=rows,
         cols=(rows - 1) % nbr,
-        row_start=rows,
         n=t.n,
         block=t.block,
     )
 
 
 def bsr_nonsym_similarity(n: int, block: int, blocks_per_row: int, key,
-                          t_scale: float = 0.01, na: int | None = None):
+                          t_scale: float = 0.01):
     """Flagship-scale nonsymmetric problem: similarity-transformed
     symmetric operator, matrix-free (the reference's variant-4
     construction, main.f90:1041-1092, at production scale).
 
-    R = E_- S E_+ with S a sliced SPD BSR operator, E_± the order-4
-    truncated series of e^{±T}, and T a one-band BSR scaled to
-    ||T||_F = ``t_scale`` (the reference's 0.01).  E_- is the series of
-    -T, NOT the inverse of the truncated E_+, so R is similar to S only
-    up to O(||T||^5/120) ~ 1e-19 — far below f64; the spectrum is real
-    and equals eig(S) to machine precision, exactly the variant-4
-    contract.  The LEFT operator is the exact transpose
-    R^T = E_+^T S E_-^T, applied through the sliced store of T^T.
+    R = E_- S E_+ with S an SPD BSR operator, E_± the order-4 truncated
+    series of e^{±T}, and T a one-band BSR scaled to ||T||_F = ``t_scale``
+    (the reference's 0.01).  E_- is the series of -T, NOT the inverse of
+    the truncated E_+, so R is similar to S only up to O(||T||^5/120) ~
+    1e-19 — far below f64; the spectrum is real and equals eig(S) to
+    machine precision, exactly the variant-4 contract.  The LEFT operator
+    is the exact transpose R^T = E_+^T S E_-^T, applied through the store
+    of T^T.
 
-    Returns ``(stores, diagonal)`` where ``stores = (s, t, tt)`` are
-    SlicedBSR pytrees (pass them as jit ARGUMENTS and build the closures
-    inside with :func:`nonsym_similarity_ops`) and ``diagonal`` is S's
-    diagonal for the preconditioner (diag(R) = diag(S) + O(||T||)).
+    Returns ``(lo, hi)``: ``(s, t, tt)`` BSR stores for the f32 and f64
+    tiers (the f64 stores hold the f32-generated values cast up).  Pass
+    them as jit ARGUMENTS and build the closures inside with
+    :func:`nonsym_similarity_ops`; S's diagonal (``bsr_diagonal(s)``)
+    preconditions, since diag(R) = diag(S) + O(||T||).
     """
-    from .ops.bsr import random_bsr_spd
-    from .ops.bsr_sliced import slice_bsr
-    from .ops.bsr_sliced_sym import slice_bsr_sym
+    from .ops.bsr import bsr_astype, random_bsr_spd
 
     ks, kt = jax.random.split(key)
-    # S is symmetric -> half-bandwidth symmetric store; T is not
-    s = slice_bsr_sym(random_bsr_spd(n, block, blocks_per_row, ks,
-                                     dtype=jnp.float32), na=na)
+    s = random_bsr_spd(n, block, blocks_per_row, ks, dtype=jnp.float32)
     t = _band_bsr(n, block, kt, t_scale)
-    tt = _bsr_transpose_band(t)
-    st, stt = slice_bsr(t, na=na), slice_bsr(tt, na=na)
-    return (s, st, stt), s.diagonal
+    lo = (s, t, _bsr_transpose_band(t))
+    return lo, tuple(bsr_astype(m, jnp.float64) for m in lo)
 
 
-def nonsym_similarity_ops(stores, dtype=jnp.float64, terms: int = 4,
-                          interpret: bool = False):
-    """(matvec, matvec_l) closures over the similarity stores at a tier.
+def nonsym_similarity_ops(stores, terms: int = 4):
+    """(matvec, matvec_l) closures over the similarity stores, in the
+    stores' dtype.
 
     Jit-traceable: call INSIDE a jitted function whose arguments are the
-    three SlicedBSR pytrees (DESIGN.md §6 — never close over multi-GB
-    stores).  ``terms``=4 keeps the e^{±T} truncation at
-    ||T||^5/120 ~ 1e-19 for ||T|| = 0.01.
+    three BSR stores (never close over multi-GB stores).  ``terms``=4 keeps
+    the e^{±T} truncation at ||T||^5/120 ~ 1e-19 for ||T|| = 0.01.
     """
-    from .ops.bsr_sliced import sliced_bsr_matvec
-    from .ops.bsr_sliced_sym import sliced_matvec_any
-
-    s, st, stt = stores
-    smv = sliced_matvec_any(s, dtype=dtype, interpret=interpret)
-    tmv = sliced_bsr_matvec(st, dtype=dtype, interpret=interpret)
-    ttmv = sliced_bsr_matvec(stt, dtype=dtype, interpret=interpret)
-
-    def exp_apply(apply_t, x, sign):
-        term, acc = x, x
-        for j in range(1, terms + 1):
-            term = apply_t(term) * (sign / j)
-            acc = acc + term
-        return acc
-
-    def mv(x):  # R x = E_- S E_+ x, rowwise
-        return exp_apply(tmv, smv(exp_apply(tmv, x, 1.0)), -1.0)
-
-    def mv_l(x):  # R^T x = E_+^T S E_-^T x
-        return exp_apply(ttmv, smv(exp_apply(ttmv, x, -1.0)), 1.0)
-
-    return mv, mv_l
+    s, t, tt = stores
+    return (nonsym_similarity_sided(s, t, 1.0, terms),
+            nonsym_similarity_sided(s, tt, -1.0, terms))
 
 
-def nonsym_similarity_sided(s_store, t_store, sign, dtype=jnp.float64,
-                            terms: int = 4, interpret: bool = False):
+def nonsym_similarity_sided(s_store, t_store, sign, terms: int = 4):
     """ONE side-polymorphic matvec closure over the similarity stores.
 
     The right operator R = E_- S E_+ and its transpose R^T = E_+^T S E_-^T
     are the SAME compute graph fed different data: ``t_store`` is the
-    sliced store of T (right) or T^T (left) and ``sign`` (may be a traced
+    store of T (right) or T^T (left) and ``sign`` (may be a traced
     scalar) is +1 for right, -1 for left.  Together with a traced
     ``use_left`` in :func:`~diaglib_tpu.solvers.nonsym_pass` this lets one
-    compiled pass program serve both sides of the consecutive protocol —
-    at flagship scale that halves the dominant XLA compile cost.
+    compiled pass program serve both sides of the consecutive protocol,
+    halving the pass programs' compile cost.
     """
-    from .ops.bsr_sliced import sliced_bsr_matvec
-    from .ops.bsr_sliced_sym import sliced_matvec_any
+    from .ops.bsr import bsr_matvec
 
-    smv = sliced_matvec_any(s_store, dtype=dtype, interpret=interpret)
-    tmv = sliced_bsr_matvec(t_store, dtype=dtype, interpret=interpret)
-    sign = jnp.asarray(sign, dtype)
+    smv = bsr_matvec(s_store)
+    tmv = bsr_matvec(t_store)
+    sign = jnp.asarray(sign, s_store.blocks_t.dtype)
 
     def exp_apply(x, sgn):
         term, acc = x, x
@@ -419,8 +371,8 @@ def nonsym_similarity_sided(s_store, t_store, sign, dtype=jnp.float64,
 
 
 def bsr_gen_problem(n: int, block: int, blocks_per_row: int, key,
-                    metric_blocks_per_row: int = 4, na: int | None = None):
-    """Flagship-scale generalized eigenproblem A x = lambda B x on sliced
+                    metric_blocks_per_row: int = 4):
+    """Flagship-scale generalized eigenproblem A x = lambda B x on plain
     BSR operators (gen_david_driver / generalized LOBPCG semantics,
     diaglib.f90:1855-2250 and 299-302, at production scale).
 
@@ -429,17 +381,14 @@ def bsr_gen_problem(n: int, block: int, blocks_per_row: int, key,
     off-diagonals) — a well-conditioned metric, like the reference's
     S = M^T M (main.f90:429-430) but block-sparse.
 
-    Returns ``(a, b)`` SlicedBSR stores; pass them as jit ARGUMENTS and
-    build matvec/bvec tiers inside with
-    ``sliced_bsr_matvec(a, dtype=...)``.
+    Returns ``(lo, hi)``: ``(a, b)`` BSR stores for the f32 and f64 tiers
+    (the f64 stores hold the f32-generated values cast up); pass them as
+    jit ARGUMENTS and build matvec/bvec inside with ``bsr_matvec``.
     """
-    from .ops.bsr import random_bsr_spd
-    from .ops.bsr_sliced_sym import slice_bsr_sym
+    from .ops.bsr import bsr_astype, random_bsr_spd
 
     ka, kb = jax.random.split(key, 2)
-    a = slice_bsr_sym(random_bsr_spd(n, block, blocks_per_row, ka,
-                                     dtype=jnp.float32), na=na)
-    b = slice_bsr_sym(random_bsr_spd(n, block, metric_blocks_per_row, kb,
-                                     dtype=jnp.float32, off_scale=0.1,
-                                     n_low_modes=0), na=na)
-    return a, b
+    a = random_bsr_spd(n, block, blocks_per_row, ka, dtype=jnp.float32)
+    b = random_bsr_spd(n, block, metric_blocks_per_row, kb,
+                       dtype=jnp.float32, off_scale=0.1, n_low_modes=0)
+    return (a, b), (bsr_astype(a, jnp.float64), bsr_astype(b, jnp.float64))

@@ -2,10 +2,10 @@
 
 The reference keeps per-phase cpu/wall accumulators (t_mv, t_diag, t_ortho,
 t_tot; diaglib.f90:160-161) updated around each phase.  Inside a jitted
-``lax.while_loop`` host-side timers are meaningless, so the TPU-native
-equivalents are:
+``lax.while_loop`` host-side timers are meaningless, so the equivalents
+here are:
 
-* :func:`trace` — capture an XLA/TPU profile of a solve for tensorboard /
+* :func:`trace` — capture an XLA device profile of a solve for tensorboard /
   xprof (phase attribution comes from the ``jax.named_scope`` annotations
   the solvers emit: ``matvec``, ``rayleigh-ritz``, ``ortho``, ``expand``);
 * :func:`phase_timings` — coarse per-phase wall breakdown measured by
@@ -63,7 +63,7 @@ def collective_inventory(hlo_text: str):
 def trace(log_dir: str):
     """Profile a block of device work: ``with trace("/tmp/prof"): solve()``.
 
-    Produces a tensorboard/xprof trace directory.  Works on TPU and CPU.
+    Produces a tensorboard/xprof trace directory.  Works on GPU and CPU.
     """
     jax.profiler.start_trace(log_dir)
     try:

@@ -1,4 +1,4 @@
-"""Solver drivers (TPU-native re-designs of diaglib.f90's six drivers)."""
+"""Solver drivers (JAX re-designs of diaglib.f90's six drivers)."""
 
 from .caslr import caslr, caslr_eff
 from .davidson import davidson, gen_david

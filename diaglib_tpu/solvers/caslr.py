@@ -1,4 +1,4 @@
-"""Casida linear-response eigensolvers (TPU-native).
+"""Casida linear-response eigensolvers.
 
 Solves the paired response problem
 
@@ -107,9 +107,7 @@ def _reduced_inverse_pencil(epmat, emmat, smat, mask, n_max, method,
     whose positive branch e = +sqrt(e^2) is the n_max-largest-e set the
     full solve would return, with the same dsygv itype=1 normalization
     (x^T A_red x = 1: both half-blocks carry weight 1/2, hence the
-    1/sqrt(2)).  ~8x less reduced-solve work — on TPU the Jacobi reduced
-    solves dominate this driver's wall time, so this is the difference
-    between caslr being usable and not.
+    1/sqrt(2)).  ~8x less reduced-solve work.
     """
     from jax.scipy.linalg import solve_triangular
 
@@ -247,23 +245,19 @@ def caslr(apbmul, ambmul, spdmul, smdmul, lrprec, evec_guess,
 
     ``algorithm`` selects the reduced solve: 0 = inverse pencil (the
     reference's default, utils.f90 i_alg=0) — computed here via its exact
-    half-size Schur-complement reduction (see _reduced_inverse_pencil),
-    measured 2.6x faster than Helmich-Paris on TPU (1.16 s vs 3.3 s on
-    the n=1000 protocol: HP needs two L x L SVDs per iteration, the
-    reduction one L x L eigh_gen, and the Jacobi reduced solves dominate
-    this driver's wall time) — or 1 = Helmich-Paris (SVD/Cholesky
-    factorized, diaglib.f90:805-872), kept as the cross-check path.
+    half-size Schur-complement reduction (see _reduced_inverse_pencil):
+    HP needs two L x L SVDs per iteration, the reduction one L x L
+    eigh_gen — or 1 = Helmich-Paris (SVD/Cholesky factorized,
+    diaglib.f90:805-872), kept as the cross-check path.
     ``lrprec(w, rp, rm) -> (yp, ym)`` is called with the first active
     eigenvalue (diaglib.f90:953-954).  Returns eigenvalues w (ascending) and
     paired eigenvectors (Y, Z) rows of length 2n.
     """
     if algorithm not in (0, 1):
         raise ValueError("algorithm must be 0 or 1")
-    from ..utils.mm import routing_for
-    with routing_for(options, "caslr"):
-        return _caslr_impl(apbmul, ambmul, spdmul, smdmul, lrprec,
-                           evec_guess, options, algorithm=algorithm, key=key,
-                           sharding=sharding)
+    return _caslr_impl(apbmul, ambmul, spdmul, smdmul, lrprec, evec_guess,
+                       options, algorithm=algorithm, key=key,
+                       sharding=sharding)
 
 
 def _caslr_impl(apbmul, ambmul, spdmul, smdmul, lrprec, evec_guess,
@@ -439,11 +433,8 @@ def caslr_eff(apbmul, ambmul, spdmul, smdmul, lrprec, evec_guess,
     only spdmul/smdmul run in the loop, apbmul/ambmul only when expanding.
     ``lrprec`` is called with the internal 1/w (diaglib.f90:1406-1407).
     """
-    from ..utils.mm import routing_for
-    with routing_for(options, "caslr_eff"):
-        return _caslr_eff_impl(apbmul, ambmul, spdmul, smdmul, lrprec,
-                               evec_guess, options, key=key,
-                               sharding=sharding)
+    return _caslr_eff_impl(apbmul, ambmul, spdmul, smdmul, lrprec,
+                           evec_guess, options, key=key, sharding=sharding)
 
 
 def _caslr_eff_impl(apbmul, ambmul, spdmul, smdmul, lrprec, evec_guess,
@@ -651,17 +642,12 @@ def _hp_masked_svd(a, mask, method, off_tol):
     """masked_svd for the Helmich-Paris reduced factors, with the Jacobi
     route forced TWO-SIDED.
 
-    Round-5 TPU measurement: the one-sided Hestenes SVD mis-converges on
-    TPU's emulated f64 for the HP chain's factors (toy HP protocol
-    ok=false at 100 iterations), while the two-sided augmented Jacobi
-    converges in the reference iteration count (16) — and the same
-    one-sided code converges on CPU, so this is a TPU-arithmetic
-    sensitivity of the delicate HP chain (SURVEY.md §7 hard-parts), not
-    an algorithm bug.  Only the two SVDs of this path are rerouted; the
-    cheaper one-sided kernel remains the route everywhere else.
-    (Defined at the END of the module so the reroute does not shift the
-    source lines of the other drivers' traced code — source locations
-    participate in the persistent compile cache key, DESIGN.md §6d.)
+    Under an emulated-f64 arithmetic the one-sided Hestenes SVD
+    mis-converged on the HP chain's factors (the toy HP protocol failed
+    to converge in 100 iterations), while the two-sided augmented Jacobi
+    converged in the reference iteration count (16); the same one-sided
+    code converges on CPU.  Only the two SVDs of this path are rerouted
+    when ``method`` is "jacobi"; other methods use :func:`masked_svd`.
     """
     from ..utils import reduced
 

@@ -1,4 +1,4 @@
-"""Block Davidson-Liu eigensolvers: standard and generalized (TPU-native).
+"""Block Davidson-Liu eigensolvers: standard and generalized.
 
 Re-designs the reference's ``davidson_driver`` (diaglib.f90:1483-1853) and
 ``gen_david_driver`` (diaglib.f90:1855-2250) as a single jit-compiled
@@ -109,25 +109,10 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options: SolverOptions,
         bguess = jnp.zeros_like(guess)
         b_ok0 = jnp.asarray(True)
 
-    # On TPU, split the f64 expansion space into its exact f32 component
-    # triple ONCE per iteration and feed the components to every sliced
-    # contraction (a_red rows, Ritz rotations, ortho projections): the
-    # emulated-f64 hi/mid/lo split is the dominant cost of each sliced
-    # product (~0.9 ms at (176, 65536) on v5e), and one split serves ~6
-    # products per iteration (ops/slicing.SplitF64).
-    use_split = dtype == jnp.float64 and jax.default_backend() == "tpu"
-
     def cond(s: _DavidsonState):
         return (~s.ok) & (s.it < max_iter)
 
     def body(s: _DavidsonState):
-        if use_split:
-            from ..ops.slicing import split_f64
-            space_rep = split_f64(s.space)
-            bspace_rep = split_f64(s.bspace) if gen_eig else None
-        else:
-            space_rep = s.space
-            bspace_rep = s.bspace if gen_eig else None
         ldu_new = s.ldu + s.n_act
         # the matvec block starts past the n_rst roots whose products are
         # skipped right after a restart (Fortran i_beg + n_rst,
@@ -146,7 +131,7 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options: SolverOptions,
         # incremental reduced-matrix rows: a_red[g, j] = aspace_g . space_j
         # (row-filled lower triangle; the Fortran fills columns of the upper
         # one, diaglib.f90:1691 — same data, transposed layout)
-        new_rows = mmT(ablock, space_rep)  # (n_max, lda_pad)
+        new_rows = mmT(ablock, s.space)  # (n_max, lda_pad)
         col_ok = prefix_mask(lda_pad, ldu_new)
         new_rows = jnp.where(col_ok[None, :], new_rows, 0.0)
         a_red = scatter_rows(s.a_red, new_rows, start)
@@ -157,8 +142,7 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options: SolverOptions,
             # intermediate solves only need to stay ~2 orders below the
             # current residual level (Davidson is self-correcting), so
             # relax the off-norm target proportionally to the smallest
-            # active rms — measured 16.9 -> 9.6 ms at the L=165 f64
-            # bucket on v5e — and let it tighten to machine eps as
+            # active rms, and let it tighten to machine eps as
             # convergence approaches (the final solves are full accuracy)
             prev_rms = jnp.min(jnp.where((~s.done)
                                          & (jnp.arange(n_max) < n_targ),
@@ -177,11 +161,9 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options: SolverOptions,
             eig = e_red[:n_max]
             c = c_full[:, :n_max]  # (lda_pad, n_max) reduced eigenvectors
 
-            from ..utils.mm import wide_site
-            with wide_site("rot"):
-                evec = mTm(c, space_rep)
-                metric_evec = mTm(c, bspace_rep) if gen_eig else evec
-                r = mTm(c, aspace) - eig[:, None] * metric_evec
+            evec = mTm(c, s.space)
+            metric_evec = mTm(c, s.bspace) if gen_eig else evec
+            r = mTm(c, aspace) - eig[:, None] * metric_evec
 
         active = (~s.done) & (jnp.arange(n_max) < n_targ)
         rms_new = jnp.linalg.norm(r, axis=1) / sqrtn
@@ -214,9 +196,7 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options: SolverOptions,
             pre = jnp.where(umask[:, None], pre, 0.0)
             if gen_eig:
                 unew, o_done = b_ortho_vs_x(
-                    s.space, s.bspace, pre, xmask=col_ok, umask=umask,
-                    xsplit=space_rep if use_split else None,
-                    bxsplit=bspace_rep if use_split else None)
+                    s.space, s.bspace, pre, xmask=col_ok, umask=umask)
                 bnew = bvec(unew)
                 bnew = jnp.where(umask[:, None], bnew, 0.0)
                 unew, bnew, b_ok = b_ortho(unew, bnew, umask)
@@ -224,8 +204,7 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options: SolverOptions,
                 bspace2 = scatter_rows(s.bspace, bnew, ldu_new)
             else:
                 unew, o_done = ortho_vs_x(
-                    s.space, pre, xmask=col_ok, umask=umask,
-                    xsplit=space_rep if use_split else None)
+                    s.space, pre, xmask=col_ok, umask=umask)
                 bspace2 = s.bspace
             return (
                 scatter_rows(s.space, unew, ldu_new),
@@ -346,10 +325,8 @@ def davidson(matvec, precnd, evec_guess, options: SolverOptions, *, key=None,
     ``sharding``: optional parallel.VectorSharding distributing the n axis
     over a device mesh.
     """
-    from ..utils.mm import routing_for
-    with routing_for(options, "davidson"):
-        return _davidson_impl(matvec, precnd, None, evec_guess, options, key,
-                              sharding)
+    return _davidson_impl(matvec, precnd, None, evec_guess, options, key,
+                          sharding)
 
 
 def gen_david(matvec, precnd, bvec, evec_guess, options: SolverOptions, *,
@@ -361,7 +338,5 @@ def gen_david(matvec, precnd, bvec, evec_guess, options: SolverOptions, *,
     stays a standard symmetric eigenproblem because the space is kept
     B-orthonormal (diaglib.f90:2098).
     """
-    from ..utils.mm import routing_for
-    with routing_for(options, "gen_david"):
-        return _davidson_impl(matvec, precnd, bvec, evec_guess, options, key,
-                              sharding)
+    return _davidson_impl(matvec, precnd, bvec, evec_guess, options, key,
+                          sharding)

@@ -1,4 +1,4 @@
-"""LOBPCG eigensolver, standard and generalized (TPU-native).
+"""LOBPCG eigensolver, standard and generalized.
 
 Re-designs the reference's ``lobpcg_driver`` (diaglib.f90:171-556) as a
 jit-compiled ``lax.while_loop`` over a fixed three-block subspace.  The
@@ -79,14 +79,6 @@ def lobpcg(matvec, precnd, evec_guess, options: SolverOptions, *,
       key: PRNG key for the random-guess fallback.
       sharding: optional parallel.VectorSharding distributing n over a mesh.
     """
-    from ..utils.mm import routing_for
-    with routing_for(options, "lobpcg"):
-        return _lobpcg_impl(matvec, precnd, evec_guess, options, bvec=bvec,
-                            key=key, sharding=sharding)
-
-
-def _lobpcg_impl(matvec, precnd, evec_guess, options: SolverOptions, *,
-                 bvec=None, key=None, sharding=None):
     from ..parallel.sharding import constrainers
 
     vec, rep = constrainers(sharding)
@@ -165,18 +157,7 @@ def _lobpcg_impl(matvec, precnd, evec_guess, options: SolverOptions, *,
     def cond(s: _LobpcgState):
         return (~s.ok) & (s.it < max_iter)
 
-    # split the f64 blocks once per iteration for the sliced Gram/overlap
-    # products (ops/slicing.SplitF64; see davidson.py note) — LOBPCG
-    # rebuilds its space every iteration, so the split is per-iteration,
-    # not incremental
-    use_split = dtype == jnp.float64 and jax.default_backend() == "tpu"
-
     def body(s: _LobpcgState):
-        if use_split:
-            from ..ops.slicing import split_f64
-            space_rep = split_f64(s.space)
-        else:
-            space_rep = s.space
         w_mask = idx_b < s.n_act
         p_valid = idx_b < s.p_count
         w = s.space[2 * n_max:]
@@ -186,10 +167,9 @@ def _lobpcg_impl(matvec, precnd, evec_guess, options: SolverOptions, *,
         n_matvec = s.n_matvec + s.n_act
 
         mask = jnp.concatenate([jnp.ones((n_max,), bool), p_valid, w_mask])
-        g = mmT(space_rep, aspace)
+        g = mmT(s.space, aspace)
         # adaptive Jacobi off-norm target: intermediate reduced solves only
-        # need ~2 orders below the current residual (see davidson.py note;
-        # measured 3.6 -> 2.4 ms at L=60 f64 on v5e)
+        # need ~2 orders below the current residual (see davidson.py note)
         prev_rms = jnp.min(jnp.where(~s.done, s.rms, jnp.inf))
         scale_t = jnp.maximum(jnp.max(jnp.abs(s.eig)), 1.0)
         off_tol = jnp.clip(0.01 * prev_rms / scale_t, 0.0, 1e-5)
@@ -199,11 +179,9 @@ def _lobpcg_impl(matvec, precnd, evec_guess, options: SolverOptions, *,
         eig = e_red[:n_max]
         c = c_full[:, :n_max]  # (3*n_max, n_max)
 
-        from ..utils.mm import wide_site
-        with wide_site("rot"):
-            x_new = mTm(c, s.space)
-            ax_new = mTm(c, aspace)
-            bx_new = mTm(c, s.bspace) if gen_eig else jnp.zeros_like(x_new)
+        x_new = mTm(c, s.space)
+        ax_new = mTm(c, aspace)
+        bx_new = mTm(c, s.bspace) if gen_eig else jnp.zeros_like(x_new)
 
         metric_x = bx_new if gen_eig else x_new
         r = ax_new - eig[:, None] * metric_x
@@ -237,11 +215,9 @@ def _lobpcg_impl(matvec, precnd, evec_guess, options: SolverOptions, *,
             u_p = u_p - jnp.where(umask[:, None], onehots, 0.0)
             u_p, p_done = ortho_vs_x(u_x, u_p, umask=umask)
 
-            with wide_site("pupd"):
-                p_new = mm(u_p, s.space)
-                ap_new = mm(u_p, aspace)
-                bp_new = (mm(u_p, s.bspace) if gen_eig
-                          else jnp.zeros_like(p_new))
+            p_new = mm(u_p, s.space)
+            ap_new = mm(u_p, aspace)
+            bp_new = mm(u_p, s.bspace) if gen_eig else jnp.zeros_like(p_new)
 
             sp = jnp.concatenate([x_new, p_new, jnp.zeros((n_max, n), dtype)])
             asp = jnp.concatenate([ax_new, ap_new, jnp.zeros((n_max, n), dtype)])

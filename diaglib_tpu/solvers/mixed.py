@@ -1,17 +1,20 @@
-"""Mixed-precision solve ladders (TPU-native capability, no reference analog).
+"""Mixed-precision solve ladders (no reference analog).
 
 The reference is double precision throughout (real_precision.f90: dp=8).
-On TPU, float64 is software-emulated — an f64 matvec costs an order of
-magnitude more than the same contraction in f32 on the MXU — so the
-TPU-native way to reach f64 accuracy is a precision ladder:
+A matrix-free matvec is bound by the bytes of its operator, and an f32
+store holds half the bytes of an f64 one, so f64 accuracy can be reached
+through a precision ladder:
 
-1. run the full solver in float32 (Pallas/MXU speed) until the residuals
-   hit the f32 noise floor;
+1. run the full solver in float32 until the residuals hit the f32 noise
+   floor;
 2. warm-start the float64 solver from the f32 Ritz vectors — the drivers
    already accept a guess (diaglib.f90:216-218 "in input, a guess"), and
    ``check_guess`` (or the LR drivers' guess split + B-orthonormalization)
    re-orthonormalizes it in the target precision — so only the last few
-   iterations pay the emulated-f64 matvec price.
+   iterations pay the f64 matvec price.
+
+Whether the ladder beats a plain f64 solve on a given device is a
+measurement (ROADMAP A5).
 
 The final result is produced entirely by the f64 stage: eigenvalues,
 residual norms and convergence flags carry full double-precision guarantees
@@ -95,8 +98,8 @@ def davidson_ladder(matvec_lo, precnd_lo, matvec_hi, precnd_hi, evec_guess,
                     lo_iter: int = None, key=None):
     """f32-then-f64 Davidson-Liu.
 
-    ``matvec_lo``/``precnd_lo`` operate on float32 blocks (e.g. the Pallas
-    BSR kernel over an f32 copy of the operator), ``matvec_hi``/``precnd_hi``
+    ``matvec_lo``/``precnd_lo`` operate on float32 blocks (e.g. the BSR
+    matvec over an f32 store of the operator), ``matvec_hi``/``precnd_hi``
     on float64.  ``lo_tol`` is the f32 stage's rms target — keep it above
     the f32 noise floor (~1e-6 · ||A||) or the stage burns its iteration
     budget without locking.  The f32 stage is not required to converge; its

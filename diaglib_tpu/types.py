@@ -1,11 +1,11 @@
 """Core types: operator callbacks, solver options, solver results.
 
-Callback contract (TPU-native replacement for the reference's ``external``
+Callback contract (replacement for the reference's ``external``
 procedures, README.md:30-44 and diaglib.f90:62-72):
 
 * ``matvec(x)``  — apply the operator to a *block of row vectors*
-  ``x: (k, n) -> (k, n)``.  Row-major blocks keep the long axis ``n`` in TPU
-  lanes and shard it across the device mesh; a Gram matrix is then a single
+  ``x: (k, n) -> (k, n)``.  Row-major blocks keep the long axis ``n``
+  contiguous and shard it across the device mesh; a Gram matrix is then a single
   ``x @ y.T`` contraction over ``n`` (an all-reduce under pjit).
 * ``precnd(shift, r)`` — shift-aware preconditioner, ``(scalar, (k, n)) ->
   (k, n)`` (reference: ``precnd(n,m,shift,x,ax)``).
@@ -70,26 +70,16 @@ class SolverOptions:
     shift:    diagonal level shift added to A (diaglib.f90:312).
     reduced_solver: where the small replicated reduced dense solves run:
               "device" (jnp.linalg), "host" (pure_callback to LAPACK, the
-              reference's own split), or "auto" (host iff compiling for
-              TPU).  See utils/reduced.py.
+              reference's own split), "jacobi" (the on-device Jacobi
+              kernels of utils/jacobi.py), or "auto" (= "device").  See
+              utils/reduced.py.
     verbose:  emit one in-flight progress line per iteration via
               ``jax.debug.print`` (the reference's live per-root table,
               diaglib.f90:459-464; full per-root histories are always
               returned in the result and renderable post hoc with
               ``reporting.print_convergence_table``).  Requires a runtime
-              with host debug callbacks (standard CPU/GPU/Cloud-TPU; some
+              with host debug callbacks (standard CPU/GPU runtimes; some
               experimental PJRT plugins lack them).
-    wide_mm:  routing for the int8-MXU wide-rotation kernel
-              (ops/slicing.py sliced_wide_mm) on TPU f64 programs:
-              "auto" (per-driver validated default — ON for davidson /
-              gen_david / caslr / caslr_eff / nonsym, OFF for lobpcg whose
-              program composition trips the VMEM-MSA overflow,
-              utils/compile.py), "always", "never".  Trace-time; because
-              it lives on SolverOptions it keys jit caches correctly
-              (unlike the emergency DIAGLIB_TPU_WIDE_MM env override).
-    sliced_mm: routing for the Ozaki integer-sliced long-contraction path
-              (utils/mm.py): "auto" (TPU f64 with K >= 8192), "always",
-              "never".
     """
 
     n_targ: int
@@ -100,8 +90,6 @@ class SolverOptions:
     shift: float = 0.0
     reduced_solver: str = "auto"
     verbose: bool = False
-    wide_mm: str = "auto"
-    sliced_mm: str = "auto"
 
     def __post_init__(self):
         if self.n_max < self.n_targ:

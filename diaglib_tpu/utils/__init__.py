@@ -8,7 +8,6 @@ from .masking import (
     scatter_rows,
 )
 from .guess import check_guess, guess_evec
-from .compile import safe_jit, tpu_compiler_options
 
 __all__ = [
     "gather_rows",
@@ -20,6 +19,4 @@ __all__ = [
     "scatter_rows",
     "check_guess",
     "guess_evec",
-    "safe_jit",
-    "tpu_compiler_options",
 ]

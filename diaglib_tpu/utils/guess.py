@@ -69,10 +69,9 @@ def check_guess(evec, key, mask=None):
 
     fac = jnp.sqrt(jnp.sum(jnp.where(mask[:, None], evec, 0.0) ** 2))
 
-    # branch-free compute-and-select: a lax.cond whose branches each contain
-    # the deeply nested ortho_cd loops has crashed the TPU AOT compiler's
-    # replication analysis; selecting the candidate first needs only one
-    # ortho_cd and no cond, with identical results.
+    # branch-free compute-and-select: selecting the candidate first needs
+    # only one ortho_cd (a lax.cond would hold one per branch), with
+    # identical results.
     rnd = jax.random.uniform(key, evec.shape, dtype=evec.dtype)
     e = jnp.where(fac == 0.0, rnd, evec)
     e = jnp.where(mask[:, None], e, 0.0)

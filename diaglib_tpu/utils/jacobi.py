@@ -1,16 +1,13 @@
 """Compile-friendly on-device symmetric eigensolver (cyclic Jacobi).
 
 Why this exists: the reduced matrices of every driver are small (a few
-hundred squared), but XLA's built-in TPU eigh lowers to a recursive
-divide-and-conquer whose program size grows with the matrix dimension —
-at the sizes our solvers use inside a ``lax.while_loop`` it takes many
-minutes to compile (and has crashed the AOT compiler), while host
-callbacks are unavailable on some TPU runtimes.  Classic cyclic Jacobi
-with a static round-robin ordering compiles to a tiny fixed program (a
-scan over rotation rounds inside a sweep loop), runs in O(L^3) flops per
-sweep with O(L^2) work per round, and is backward stable with excellent
-relative accuracy — the right tool for small replicated eigenproblems on
-TPU.
+hundred squared).  Classic cyclic Jacobi with a static round-robin
+ordering compiles to a tiny fixed program (a scan over rotation rounds
+inside a sweep loop) whatever the matrix dimension, runs in O(L^3) flops
+per sweep with O(L^2) work per round, and is backward stable with
+excellent relative accuracy.  It is the ``reduced_solver="jacobi"`` route;
+the default route is ``jnp.linalg`` (utils/reduced.py), and which one is
+faster on a device is a measurement (ROADMAP C4).
 
 The SVD is obtained from the Jacobi eigendecomposition of the symmetric
 augmented matrix [[0, A^T], [A, 0]] whose positive eigenpairs are the
@@ -31,9 +28,9 @@ __all__ = ["jacobi_eigh", "jacobi_svd", "jacobi_svd_onesided",
 def rank_argsort(w, descending: bool = False):
     """Stable argsort of a small 1-D array without a sort HLO.
 
-    XLA's sort/cumsum lowerings claim large scoped VMEM on TPU and have
-    OOM'd the compiler inside big loop bodies; an O(L^2) comparison matrix
-    is free at reduced-matrix sizes and lowers to plain vector ops.
+    An O(L^2) comparison matrix is free at reduced-matrix sizes and lowers
+    to plain vector ops, where a sort HLO inside big loop bodies adds
+    compile cost.
     """
     L = w.shape[0]
     idx = jnp.arange(L)
@@ -157,23 +154,18 @@ def jacobi_eigh(a, max_sweeps: int = 30, mixed_precision: bool = True,
     matching jnp.linalg.eigh (quadratic convergence, ~8-10 sweeps).
 
     For float64 input with ``mixed_precision`` (default), the bulk of the
-    sweeps runs in float32 — native speed on TPU, where float64 is
-    emulated — and the result seeds a float64 phase: A1 = V32^T A V32 is
+    sweeps runs in float32 and the result seeds a float64 phase: A1 = V32^T A V32 is
     nearly diagonal, so only ~2 double-precision sweeps remain.  The final
     accuracy is set entirely by the float64 phase.
 
     ``v0``: optional orthonormal warm-start basis (e.g. the eigenvectors
-    of a nearby matrix).  Only the single-phase path uses it (measured on
-    v5e, L=165: pure-f32 solves drop 12.4 -> 9.9 ms; the MIXED path with a
-    pre-rotation measured 2.7x SLOWER than cold, because the appended-
-    block structure of growing solver matrices keeps the rotated off-norm
-    at ~0.4 so the f32 sweep count barely drops while the extra
-    compose/rotate matmuls are pure overhead — the mixed path therefore
-    ignores v0).  ``off_tol``: relative off-diagonal target, may be a
+    of a nearby matrix).  Only the single-phase path uses it: the
+    appended-block structure of growing solver matrices keeps the rotated
+    off-norm at ~0.4, so in the mixed path a pre-rotation barely cuts the
+    f32 sweep count while adding compose/rotate matmuls, and the mixed
+    path ignores v0.  ``off_tol``: relative off-diagonal target, may be a
     traced scalar (see _jacobi_sweeps); 0 keeps machine-precision
-    polishing.  Measured v5e cold-solve effect of off_tol=1e-5:
-    L=165 f64 16.9 -> 9.6 ms, L=120 f64 8.6 -> 5.2 ms, L=165 f32
-    12.4 -> 9.9 ms.
+    polishing.
     """
     L0 = a.shape[-1]
     dtype = a.dtype

@@ -1,8 +1,8 @@
 """Masked static-shape linear algebra helpers.
 
 The Fortran reference grows/shrinks its subspaces with dynamic column
-arithmetic (e.g. diaglib.f90:1680-1691).  XLA requires static shapes, so the
-TPU design keeps every subspace at a fixed padded capacity and carries a
+arithmetic (e.g. diaglib.f90:1680-1691).  XLA requires static shapes, so
+this design keeps every subspace at a fixed padded capacity and carries a
 boolean validity mask (or a scalar count for prefix-valid regions).  These
 helpers implement the core masked primitives used by every solver:
 
@@ -100,8 +100,7 @@ def prefix_buckets(full: int, lo: int, fine: bool = False):
 
     ``fine``: switch to LINEAR steps of ``lo`` past 2*lo (lo, 2lo, 3lo,
     ...) — the cubic cost makes the doubling jump expensive at the top
-    (measured v5e: the L=120 -> 165 jump nearly doubles the f64 Jacobi
-    solve, 4.2 -> 8.7 ms), so drivers whose reduced solve dominates the
+    (L=120 -> 165 is 2.6x the flops), so drivers whose reduced solve dominates the
     iteration (davidson) trade a few more compiled branches (each a tiny
     dimension-independent Jacobi program) for tighter sizes; drivers whose
     COMPILE budget dominates (the nonsym Eberlein buckets) stay coarse."""

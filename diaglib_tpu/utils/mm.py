@@ -1,193 +1,36 @@
-"""Precision-safe matmul helpers for TPU's emulated float64.
+"""Gram and rotation contractions of the solvers, at a stated precision.
 
-Empirical findings on TPU (v5e, XLA AOT), isolated from a Davidson residual
-stall that only reproduced on TPU:
+Every Gram-like or rotation contraction in the solvers goes through
+``mm`` / ``mmT`` / ``mTm``.  Each dot states ``Precision.HIGHEST``: on a
+GPU an f32 matmul may otherwise run in TF32 (about three decimal digits),
+which the f32 tier of a mixed-precision ladder would read as lost
+orthogonality and a stalled residual.
 
-* an f64 ``dot_general`` whose operands hold *identical or highly
-  correlated values* (any Gram-like product ``u @ u.T``, ``v.T @ v`` — even
-  through optimization barriers or bitwise copies) silently loses ~7
-  decimal digits; independent operands are computed at full precision;
-* multiplying one operand by 2.0 restores full precision for contraction
-  lengths up to ~4096, but the defect returns for longer contractions;
-* chunking the contraction dimension to <= 4096 inside a ``lax.scan`` (so
-  XLA cannot re-fuse the partial dots) with the x2 scaling per chunk is
-  fully accurate at every length tested (verified to 65536).
-
-Multiplying by 2 and halving are exact in binary floating point, and the
-f64 partial-sum additions are exact emulated adds, so these helpers are
-bit-sane implementations of ``a @ b``-style contractions that route around
-whatever value-correlated fast path the emulation takes.  Every Gram-like
-or rotation contraction in the solvers goes through them; for non-f64
-dtypes and short contractions they reduce to a single scaled matmul.
-
-On TPU, long f64 contractions additionally dispatch to the Ozaki
-integer-sliced path (ops/slicing.py): exact int8-MXU slice products beat
-the chunked emulated-f64 scan (measured 1.3x+ at K=65536 on v5e) at equal
-or better accuracy (no rounding inside the contraction at all).
-
-Routing is FIRST-CLASS CONFIG: solvers enter :class:`mm_routing` via
-:func:`routing_for` from ``SolverOptions.wide_mm`` / ``.sliced_mm``
-("auto" resolves to validated per-driver defaults, ``_WIDE_DEFAULTS``).
-Because options are hashable jit statics, routing keys jit caches
-correctly.  The ``DIAGLIB_TPU_SLICED_MM`` / ``DIAGLIB_TPU_WIDE_MM`` env
-vars remain as EMERGENCY overrides only (read at trace time; jit caches
-do not key on them — set before the first compilation or not at all).
+Float64 contractions longer than ``_CHUNK`` are split into a ``lax.scan``
+of ``_CHUNK``-wide partial dots, each with one operand scaled by 2 and the
+product halved.  Both are exact in binary floating point, so the result is
+the same contraction; the scheme was a workaround for an emulated-f64
+backend that lost digits on value-correlated products.  On native f64 it
+only costs time; whether to keep it is a measurement (ROADMAP A3, C2).
 """
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 
-__all__ = ["mm", "mmT", "mTm", "mm_routing", "routing_for"]
+__all__ = ["mm", "mmT", "mTm"]
 
 _CHUNK = 4096
-_SLICED_MIN_K = 8192
-
-# trace-time call-site tag for wide-route bisection (DIAGLIB_TPU_WIDE_SITES)
-_wide_site = "untagged"
-
-# trace-time routing state set by solvers from SolverOptions (mm_routing /
-# routing_for).  None = unset; the DIAGLIB_TPU_* env vars, when SET,
-# override it (emergency escape hatch); otherwise the hard-coded "auto"
-# defaults apply.  Because routing now rides SolverOptions (a hashable jit
-# static), two solver calls differing only in routing produce different
-# traces — the env-var jit-cache footgun is gone for option-driven use.
-_ROUTING = {"wide": None, "sliced": None}
-
-# per-driver wide-kernel defaults for SolverOptions.wide_mm == "auto"
-# (validated on v5e): ON for every driver.  lobpcg was OFF through round
-# 4 (its program composition tripped the VMEM-MSA overflow,
-# utils/compile.py); the round-5 SplitF64 presplit operands changed the
-# program's promoted-buffer set and the wide ladder now compiles and
-# runs clean — measured 21.6 vs 27.6 ms per f64 iteration at the
-# flagship (DESIGN.md §6d).
-_WIDE_DEFAULTS = {
-    "davidson": "always",
-    "gen_david": "always",
-    "caslr": "always",
-    "caslr_eff": "always",
-    "nonsym": "always",
-    "lobpcg": "always",
-}
+_HI = jax.lax.Precision.HIGHEST
 
 
-class mm_routing:
-    """Trace-time kernel-routing context (wide / sliced contraction paths).
-
-    ``wide`` / ``sliced``: "always" | "never" | "auto" | None (= leave as
-    is).  Solvers enter this around their trace via :func:`routing_for`;
-    tests may use it directly.
-    """
-
-    def __init__(self, wide=None, sliced=None):
-        self.wide, self.sliced = wide, sliced
-
-    def __enter__(self):
-        self.prev = dict(_ROUTING)
-        if self.wide is not None:
-            _ROUTING["wide"] = self.wide
-        if self.sliced is not None:
-            _ROUTING["sliced"] = self.sliced
-        return self
-
-    def __exit__(self, *a):
-        _ROUTING.clear()
-        _ROUTING.update(self.prev)
-
-
-def routing_for(options, driver: str) -> "mm_routing":
-    """Routing context for a solver ``driver`` ("davidson", "lobpcg", ...)
-    honoring ``options.wide_mm`` / ``options.sliced_mm`` ("auto" resolves
-    to the per-driver validated default)."""
-    wide = getattr(options, "wide_mm", "auto")
-    if wide == "auto":
-        wide = _WIDE_DEFAULTS.get(driver, "never")
-    sliced = getattr(options, "sliced_mm", "auto")
-    return mm_routing(wide=wide,
-                      sliced=None if sliced == "auto" else sliced)
-
-
-def _mode(env_name: str, key: str, default: str = "auto") -> str:
-    env = os.environ.get(env_name)
-    if env:
-        return env
-    return _ROUTING[key] or default
-
-
-class wide_site:
-    """Context manager tagging mm/mTm call sites at trace time (debug)."""
-
-    def __init__(self, name):
-        self.name = name
-
-    def __enter__(self):
-        global _wide_site
-        self.prev = _wide_site
-        _wide_site = self.name
-
-    def __exit__(self, *a):
-        global _wide_site
-        _wide_site = self.prev
-
-
-def _use_sliced(dtype, k):
-    # NOTE: resolved at TRACE time — route via SolverOptions
-    # (sliced_mm="always"/"never") so the setting keys the jit cache; the
-    # env var DIAGLIB_TPU_SLICED_MM is an emergency override only
-    mode = _mode("DIAGLIB_TPU_SLICED_MM", "sliced")
-    if mode == "never":
-        return False
-    from ..ops.slicing import fits_exact
-    if mode == "always":
-        return dtype == jnp.float64 and fits_exact(k)
-    return (dtype == jnp.float64 and k >= _SLICED_MIN_K and fits_exact(k)
-            and jax.default_backend() == "tpu")
-
-
-def _use_wide(dtype, k, m, n):
-    """Route short-contraction WIDE-output products (Ritz rotations,
-    ortho projections: (m, k) @ (k, n) with k ~ subspace size, n ~ vector
-    length) to the level-folded int8 kernel: the emulated-f64 matmul
-    costs ~7 ms at (15, 165) x (165, 65536) on v5e, the sliced kernel
-    ~1 ms at the same exactness."""
-    if _mode("DIAGLIB_TPU_SLICED_MM", "sliced") == "never":
-        return False
-    mode = _mode("DIAGLIB_TPU_WIDE_MM", "wide")
-    if mode == "never":
-        return False
-    if mode == "auto":
-        # bare-call default OFF: the kernel is correct, but program
-        # composition decides whether XLA's VMEM memory-space-assignment
-        # oversubscribes next to its outputs and crashes the v5e worker
-        # (utils/compile.py).  Solvers turn it on per driver through
-        # routing_for(options, driver) with validated defaults.
-        return False
-    use = (dtype == jnp.float64 and jax.default_backend() == "tpu"
-           and k <= 4096 and m <= 1024 and n >= 8192 and n % 256 == 0)
-    if use:
-        # same feasibility computation the kernel runs: shapes with no
-        # valid lane tile (K >~ 1450) or int32-overflow risk fall back to
-        # the chunked emulated path instead of raising at trace time
-        from ..ops.slicing import wide_feasible
-        use = wide_feasible(m, k, n)
-    if use and mode.startswith("kmin:"):
-        use = k >= int(mode[5:])
-    elif use and mode.startswith("kmax:"):
-        use = k <= int(mode[5:])
-    sites = os.environ.get("DIAGLIB_TPU_WIDE_SITES")
-    if use and sites:
-        use = _wide_site in sites.split(",")
-    if use and os.environ.get("DIAGLIB_TPU_MM_LOG"):
-        print(f"[mm] wide route: ({m}, {k}) @ ({k}, {n}) site={_wide_site}",
-              flush=True)
-    return use
+def _dot(a, b):
+    return jnp.matmul(a, b, precision=_HI)
 
 
 def _scaled(a, b):
-    return (a @ (2.0 * b)) * 0.5
+    return _dot(a, 2.0 * b) * 0.5
 
 
 def _needs_chunking(dtype, k):
@@ -199,56 +42,29 @@ def _chunk_sizes(k):
     return nc, nc * _CHUNK
 
 
-def _desplit(b):
-    """Reconstruct a SplitF64 operand for routes that need raw float64
-    (exact within the split's range contract; see ops/slicing.SplitF64)."""
-    from ..ops.slicing import SplitF64
-    return b.value if isinstance(b, SplitF64) else b
-
-
 def mmT(a, b):
-    """a @ b.T (Gram layout, contracting the last axes), f64-safe on TPU.
-
-    ``b`` may be a :class:`~diaglib_tpu.ops.slicing.SplitF64` (a solver's
-    once-per-iteration split of its expansion space): the sliced route
-    consumes the components directly — skipping the dominant emulated-f64
-    split pass — and other routes reconstruct."""
+    """a @ b.T (Gram layout, contracting the last axes)."""
     k = a.shape[-1]
-    if _use_sliced(a.dtype, k):
-        from ..ops.slicing import sliced_mmT
-        return sliced_mmT(a, b)  # either operand may be a SplitF64
-    a = _desplit(a)
-    b = _desplit(b)
     if not _needs_chunking(a.dtype, k):
-        return (a @ (2.0 * b).T) * 0.5
+        return _scaled(a, b.T)
     nc, k_main = _chunk_sizes(k)
     aa = a[..., :k_main].reshape(a.shape[0], nc, _CHUNK).transpose(1, 0, 2)
     bb = b[..., :k_main].reshape(b.shape[0], nc, _CHUNK).transpose(1, 0, 2)
 
     def body(acc, xy):
         x, y = xy
-        return acc + (x @ (2.0 * y).T) * 0.5, None
+        return acc + _scaled(x, y.T), None
 
     acc0 = jnp.zeros((a.shape[0], b.shape[0]), a.dtype)
     out, _ = jax.lax.scan(body, acc0, (aa, bb))
     if k_main < k:
-        out = out + (a[..., k_main:] @ (2.0 * b[..., k_main:]).T) * 0.5
+        out = out + _scaled(a[..., k_main:], b[..., k_main:].T)
     return out
 
 
 def mm(a, b):
-    """a @ b (contract last dim of a with first of b), f64-safe on TPU.
-    ``b`` may be a SplitF64 (see mmT)."""
+    """a @ b (contract last dim of a with first of b)."""
     k = a.shape[-1]
-    if _use_sliced(a.dtype, k):
-        from ..ops.slicing import sliced_mm
-        return sliced_mm(a, b)
-    a = _desplit(a)  # the wide kernel presplits only its b side
-    if a.ndim == 2 and b.ndim == 2 and _use_wide(a.dtype, k, a.shape[0],
-                                                b.shape[-1]):
-        from ..ops.slicing import sliced_wide_mm
-        return sliced_wide_mm(a, b)
-    b = _desplit(b)
     if not _needs_chunking(a.dtype, k):
         return _scaled(a, b)
     nc, k_main = _chunk_sizes(k)
@@ -267,30 +83,20 @@ def mm(a, b):
 
 
 def mTm(a, b):
-    """a.T @ b (contract the first axes), f64-safe on TPU.
-    ``b`` may be a SplitF64 (see mmT)."""
+    """a.T @ b (contract the first axes)."""
     k = a.shape[0]
-    if _use_sliced(a.dtype, k):
-        from ..ops.slicing import sliced_mTm
-        return sliced_mTm(a, b)
-    a = _desplit(a)  # the wide kernel presplits only its b side
-    if a.ndim == 2 and b.ndim == 2 and _use_wide(a.dtype, k, a.shape[1],
-                                                b.shape[-1]):
-        from ..ops.slicing import sliced_wide_mm
-        return sliced_wide_mm(a.T, b)
-    b = _desplit(b)
     if not _needs_chunking(a.dtype, k):
-        return (a.T @ (2.0 * b)) * 0.5
+        return _scaled(a.T, b)
     nc, k_main = _chunk_sizes(k)
     aa = a[:k_main].reshape(nc, _CHUNK, a.shape[1])
     bb = b[:k_main].reshape(nc, _CHUNK, b.shape[1])
 
     def body(acc, xy):
         x, y = xy
-        return acc + (x.T @ (2.0 * y)) * 0.5, None
+        return acc + _scaled(x.T, y), None
 
     acc0 = jnp.zeros((a.shape[1], b.shape[1]), a.dtype)
     out, _ = jax.lax.scan(body, acc0, (aa, bb))
     if k_main < k:
-        out = out + (a[k_main:].T @ (2.0 * b[k_main:])) * 0.5
+        out = out + _scaled(a[k_main:].T, b[k_main:])
     return out

@@ -3,7 +3,7 @@
 #
 # This build image has NO gfortran and NO network egress, so the reference
 # Fortran binary cannot be built or run here; the iteration-parity fixtures
-# therefore pin the TPU library's own converged behavior (see the test
+# therefore pin the JAX library's own converged behavior (see the test
 # module docstring).  Run THIS script once on any machine with gfortran +
 # BLAS/LAPACK and a checkout of the reference (Molecolab-Pisa/diaglib) to
 # produce the authoritative numbers, then paste the summary block it prints

@@ -14,6 +14,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import bench  # noqa: E402
+import pytest  # noqa: E402
 
 
 def test_artifact_records_bare_headline():
@@ -57,14 +58,40 @@ def test_prev_values_latest_round_wins(tmp_path, monkeypatch):
     assert bench.prev_value() == 0.6866
 
 
-def test_prev_values_real_r03_artifact():
-    # the actual round-3 driver artifact committed in the repo root must
-    # yield the real davidson headline, not None (the round-3 bug)
-    path = os.path.join(os.path.dirname(bench.__file__), "BENCH_r03.json")
-    d = json.load(open(path))
+@pytest.fixture
+def r03_artifact(tmp_path):
+    """A driver artifact of the round-3 shape: rc=124 (cut by the driver's
+    timeout), a 2000-character "tail" whose first line is truncated, log
+    lines between the metric records, and "parsed" holding whatever JSON
+    line landed last."""
+    lines = [
+        'alue": 0.6866, "unit": "s", "ok": true, "iters": 47}',
+        json.dumps({"metric": "lobpcg_bsr_n65536_f64_wall", "value": 0.7066,
+                    "unit": "s", "ok": True, "iters": 87}),
+        json.dumps({"metric": bench.METRIC, "value": 0.6866, "unit": "s",
+                    "vs_baseline": 1.0}),
+        "[bench] section spmm: ok, 4 metrics, 130s",
+        json.dumps({"metric": "spmm_f32_gnnzps", "value": 156.0297,
+                    "unit": "Gnnz/s", "ms_per_matvec": 3.01}),
+        "caslr_eff ladder n=65536: compile+first solve 20.3s, ok=True",
+    ]
+    tail = "\n".join(lines)
+    path = tmp_path / "BENCH_r03.json"
+    path.write_text(json.dumps({
+        "n": 3, "cmd": "python bench.py", "rc": 124, "tail": tail[-2000:],
+        "parsed": {"metric": "spmm_f32_gnnzps", "value": 156.0297}}))
+    return path
+
+
+def test_prev_values_real_r03_artifact(r03_artifact, monkeypatch):
+    # a driver artifact of the round-3 shape must yield the davidson
+    # headline, not None (the round-3 bug)
+    d = json.load(open(r03_artifact))
     recs = bench._artifact_records(d)
     by = {r["metric"]: r["value"] for r in recs if "metric" in r}
     assert abs(by[bench.METRIC] - 0.6866) < 1e-9
+    monkeypatch.setattr(bench, "REPO", str(r03_artifact.parent))
+    assert bench.prev_value() == 0.6866
 
 
 def test_suite_headline_shape(monkeypatch, capsys):

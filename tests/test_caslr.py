@@ -158,8 +158,8 @@ def test_caslr_half_zero_guess_repaired_per_row(casida):
 
 
 def test_hp_masked_svd_matches_masked_svd():
-    """The HP path's two-sided SVD reroute (TPU-arithmetic fix, see
-    caslr._hp_masked_svd) keeps masked_svd's exact contract."""
+    """The HP path's two-sided SVD reroute (see caslr._hp_masked_svd)
+    keeps masked_svd's exact contract."""
     import jax
     import jax.numpy as jnp
     import numpy as np

@@ -22,7 +22,7 @@ from diaglib_tpu.profiling import collective_inventory
 
 # Genuine lines from compiled modules of this repo (jit(mv) = the d8
 # dist-BSR halo exchange; jit(gram) = a sharded Gram + broadcast), plus an
-# async -start/-done pair in the format XLA emits on TPU.  The fusion/ROOT
+# async -start/-done pair in the format XLA emits for async collectives.  The fusion/ROOT
 # lines REFERENCE collectives as operands and must not be counted.
 _FIXTURE = """\
 ENTRY %main.42 {
@@ -65,8 +65,8 @@ def test_dist_bsr_d8_halo_inventory_live():
 
     nb, Bb = 2048, 128
     mtx = random_bsr_spd(nb, Bb, 4, jax.random.PRNGKey(0), dtype=jnp.float64)
-    dm = distribute_bsr(mtx, 8)
     sh8 = VectorSharding(make_mesh(jax.devices()[:8]))
+    dm = distribute_bsr(mtx, sh8)
     mv8 = jax.jit(dist_bsr_matvec(dm, sh8))
     x8 = jnp.zeros((4, nb), jnp.float64)
     txt = mv8.lower(x8).compile().as_text()

@@ -40,8 +40,8 @@ def matrix():
 
 
 def test_matches_single_device_and_dense(mesh, matrix):
-    dm = distribute_bsr(matrix, 8)
     sh = VectorSharding(mesh)
+    dm = distribute_bsr(matrix, sh)
     x = jax.random.normal(jax.random.PRNGKey(2), (5, N), jnp.float64)
     y_dist = jax.jit(dist_bsr_matvec(dm, sh))(x)
     y_ser = bsr_matvec(matrix)(x)
@@ -53,8 +53,13 @@ def test_matches_single_device_and_dense(mesh, matrix):
 
 
 def test_output_sharded_and_uses_ppermute(mesh, matrix):
-    dm = distribute_bsr(matrix, 8)
     sh = VectorSharding(mesh)
+    dm = distribute_bsr(matrix, sh)
+    # every shard of the operator lives on its own device
+    for leaf in jax.tree_util.tree_leaves(dm):
+        assert {s.device for s in leaf.addressable_shards} == set(
+            mesh.devices.flat)
+        assert {s.data.shape[0] for s in leaf.addressable_shards} == {1}
     mv = jax.jit(dist_bsr_matvec(dm, sh))
     x = jax.random.normal(jax.random.PRNGKey(3), (4, N), jnp.float64)
     y = mv(x)
@@ -69,37 +74,37 @@ def test_banded_skips_empty_ring_offsets():
     # {0, 1, D-1} are populated; empty ones must not exist in the pytree
     banded = random_bsr_spd(N, B, 2, jax.random.PRNGKey(23),
                             dtype=jnp.float64)
-    dm = distribute_bsr(banded, 8)
+    sh = VectorSharding(make_mesh())
+    dm = distribute_bsr(banded, sh)
     assert set(dm.steps) <= {0, 1, 7}, dm.steps
     assert 0 in dm.steps
     x = jax.random.normal(jax.random.PRNGKey(6), (3, N), jnp.float64)
-    sh = VectorSharding(make_mesh())
     np.testing.assert_allclose(
         np.asarray(jax.jit(dist_bsr_matvec(dm, sh))(x)),
         np.asarray(bsr_matvec(banded)(x)), rtol=0, atol=1e-12)
 
 
 def test_single_shard_degenerates_to_serial(matrix):
-    dm = distribute_bsr(matrix, 1)
+    dm = distribute_bsr(matrix, VectorSharding(make_mesh(jax.devices()[:1])))
     assert dm.steps == (0,)
 
 
 def test_indivisible_rows_rejected(matrix):
     with pytest.raises(ValueError):
-        distribute_bsr(matrix, 5)
+        distribute_bsr(matrix, VectorSharding(make_mesh(jax.devices()[:5])))
 
 
 def test_davidson_on_distributed_operator(mesh, matrix):
     """Full solver over the halo-exchange matvec == serial solve."""
     sh = VectorSharding(mesh)
-    dm = distribute_bsr(matrix, 8)
+    dm = distribute_bsr(matrix, sh)
     diag = bsr_diagonal(matrix)
     opts = SolverOptions(n_targ=4, n_max=8, max_iter=100, tol=1e-9)
     guess = jnp.zeros((8, N), jnp.float64)
 
-    res_d = jax.jit(lambda g: davidson(
+    res_d = jax.jit(lambda dm, g: davidson(
         dist_bsr_matvec(dm, sh), diag_precnd(diag), g, opts,
-        key=jax.random.PRNGKey(4), sharding=sh))(guess)
+        key=jax.random.PRNGKey(4), sharding=sh))(dm, guess)
     res_s = davidson(bsr_matvec(matrix), diag_precnd(diag), guess, opts,
                      key=jax.random.PRNGKey(4))
     assert bool(res_d.ok)

@@ -179,30 +179,18 @@ def test_nonsym_ladder(driver):
 
 def test_caslr_eff_ladder_sliced_bsr():
     """Flagship-path shape at test scale: the mixed-precision LR ladder on
-    Ozaki-sliced BSR (A+B)/(A-B) operators (tdscf structure), eigenvalues
-    vs the dense pencil oracle."""
+    plain BSR (A+B)/(A-B) stores at both tiers (tdscf structure),
+    eigenvalues vs the dense pencil oracle."""
     import scipy.linalg
 
     from diaglib_tpu.ops.bsr import bsr_to_dense
-    from diaglib_tpu.ops.bsr_sliced import SlicedBSR  # noqa: F401
-    from diaglib_tpu.problems import bsr_casida_tdscf
+    from diaglib_tpu.problems import bsr_casida_tdscf, casida_tdscf_ops
     from diaglib_tpu.solvers import caslr_eff_ladder
 
     n = 256
-    ops_lo, ops_hi, diag_aa, (apb_s, amb_s) = bsr_casida_tdscf(
-        n, 8, 2, jax.random.PRNGKey(3), interpret=True)
+    lo, hi = bsr_casida_tdscf(n, 8, 2, jax.random.PRNGKey(3))
     # dense oracle: E = [[A,B],[B,A]], S = [[I,0],[0,-I]], w = 1/e desc
-    import dataclasses as dc
-    from diaglib_tpu.ops.bsr import BSRMatrix
-
-    def dense_of(ms):
-        # reconstruct the f64 operator the slices represent via matvec rows
-        from diaglib_tpu.ops.bsr_sliced_sym import sliced_matvec_any
-        mv = sliced_matvec_any(ms, interpret=True)
-        return np.asarray(mv(jnp.eye(n, dtype=jnp.float64))).T
-
-    apb = dense_of(apb_s)
-    amb = dense_of(amb_s)
+    apb, amb = (np.asarray(bsr_to_dense(m)) for m in hi)
     aa, bb = 0.5 * (apb + amb), 0.5 * (apb - amb)
     e_full = np.block([[aa, bb], [bb, aa]])
     s_full = np.block([[np.eye(n), np.zeros((n, n))],
@@ -212,7 +200,8 @@ def test_caslr_eff_ladder_sliced_bsr():
 
     opts = SolverOptions(n_targ=2, n_max=4, max_iter=150, tol=1e-10,
                          max_dav=10)
-    res = caslr_eff_ladder(ops_lo, ops_hi, jnp.zeros((4, 2 * n)), opts,
-                           key=jax.random.PRNGKey(1))
+    res = jax.jit(lambda lo, hi, g, k: caslr_eff_ladder(
+        casida_tdscf_ops(*lo), casida_tdscf_ops(*hi), g, opts, key=k))(
+            lo, hi, jnp.zeros((4, 2 * n)), jax.random.PRNGKey(1))
     assert bool(res.ok)
     np.testing.assert_allclose(np.asarray(res.eig[:2]), omega[:2], rtol=1e-8)

@@ -101,7 +101,7 @@ def test_bad_method():
 @pytest.mark.parametrize("k", [100, 4096, 5000, 16384])
 def test_mm_helpers_match_numpy(k):
     """mm/mmT/mTm must agree with numpy at any contraction length (the
-    chunked TPU-f64 workaround must not change results)."""
+    chunked x2-scaled f64 contraction must not change results)."""
     from diaglib_tpu.utils.mm import mm, mmT, mTm
 
     rng = np.random.default_rng(0)
@@ -134,10 +134,8 @@ def test_jacobi_tiny_sizes():
 
 
 def test_f32_svd_routes_and_matches():
-    """TPU f32 jnp.linalg.svd crashes the AOT compiler (DESIGN.md §6), so
-    reduced.svd must produce correct f32 results through whatever path the
-    backend routing picks — pinned against the f64 oracle here, and the
-    Jacobi path (the TPU f32 route) checked explicitly."""
+    """reduced.svd's f32 route ("auto" = jnp.linalg) and the Jacobi SVD
+    both produce correct f32 results, pinned against the f64 oracle."""
     import numpy as np
 
     from diaglib_tpu.utils import jacobi, reduced
@@ -147,6 +145,7 @@ def test_f32_svd_routes_and_matches():
     a32 = jnp.asarray(a64, jnp.float32)
     s_ref = np.linalg.svd(a64, compute_uv=False)
 
+    assert reduced.resolve("auto") == "device"
     u, s, vt = reduced.svd(a32)
     np.testing.assert_allclose(np.asarray(s), s_ref, rtol=2e-5)
     rec = np.asarray(u) @ np.diag(np.asarray(s)) @ np.asarray(vt)
